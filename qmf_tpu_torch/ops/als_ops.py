@@ -1,0 +1,205 @@
+"""Batched weighted-ALS math in PyTorch (port of qmf_tpu/ops/als_ops.py).
+
+For each row u with observed signals (j, r_uj), solve the Hu-Koren normal
+equations (reference qmf/wals/WALSEngine.cpp:266-310)
+
+    A_u x = b_u,   A_u = YtY + sum_j alpha r_uj y_j y_j^T + lambda I
+                   b_u = sum_j (1 + alpha r_uj) y_j
+
+a width class of rows at a time: the Gramian is one matmul, the per-row A and
+b are a gather plus batched products, and the solves of a class are one
+batched SPD solve (ops/spd_solve.py: the hand-written CUDA kernel on a GPU).
+The per-row loss uses the identity of qmf_tpu: at the solution
+x^T (A - lambda I) x = x.b - lambda |x|^2.
+
+Only the split build-then-solve path of qmf_tpu is ported; the hot/cold head
+split and the fused build+solve kernel are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from qmf_tpu_torch.ops import spd_solve
+
+
+def gramian(y: torch.Tensor) -> torch.Tensor:
+    """YtY as one matmul (exact; replaces reference computeXtX)."""
+    return y.T @ y
+
+
+def _flat_gather(y: torch.Tensor, col_idx: torch.Tensor) -> torch.Tensor:
+    """Row gather ``y[col_idx]`` through raveled indices: (B, D, k)."""
+    return y.index_select(0, col_idx.reshape(-1)).reshape(
+        *col_idx.shape, y.shape[1]
+    )
+
+
+def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision):
+    """Normal-equation build for one padded bucket: (A (B,k,k), b (B,k),
+    conf_sum (B,)); the gather + batched products, no solve.
+
+    precision="default" with f32 factors rounds the gathered factors and the
+    weights to bf16 before the gather, as qmf_tpu does at als_ops.py:159-187,
+    and accumulates A and b in f32. bf16 x bf16 products are exact in f32, so
+    upcasting the rounded operands and multiplying in true fp32 gives the
+    f32-accumulated result; A is never rounded to bf16.
+    """
+    dtype = y.dtype
+    k = yty.shape[0]
+    maskf = mask.to(dtype)
+    w = alpha * values * maskf
+    conf = maskf + w
+    eye = torch.eye(k, dtype=dtype, device=y.device)
+    if precision == "default" and dtype == torch.float32:
+        bf16 = torch.bfloat16
+        yg = _flat_gather(y.to(bf16), col_idx)  # (B, D, k) bf16
+        ygw = (yg * w.to(bf16).unsqueeze(-1)).to(dtype)  # bf16 rounding
+        yg = yg.to(dtype)
+        b = torch.bmm(conf.to(bf16).to(dtype).unsqueeze(1), yg).squeeze(1)
+    else:
+        yg = _flat_gather(y, col_idx)
+        ygw = yg * w.unsqueeze(-1)
+        b = torch.bmm(conf.unsqueeze(1), yg).squeeze(1)
+    a = torch.baddbmm(yty + lam * eye, ygw.transpose(1, 2), yg)
+    return a, b, conf.sum(dim=1)
+
+
+def _solve_dispatch(a: torch.Tensor, b: torch.Tensor,
+                    solver: str) -> torch.Tensor:
+    if solver == "kernel":
+        return spd_solve.solve_spd(a, b)
+    if solver == "cholesky":
+        return spd_solve.solve_spd_reference(a, b)
+    if solver == "lu":
+        # general solve (tolerates indefinite A like dsysv_); no raise on a
+        # singular row, as the JAX solve does not raise either
+        return torch.linalg.solve_ex(a, b.unsqueeze(-1))[0].squeeze(-1)
+    raise ValueError(f"unknown WALS solver {solver!r}")
+
+
+def _loss_from_solution(x, b, conf_sum, lam):
+    # Reference loss (WALSEngine.cpp:289-304):
+    #   loss = sum(conf) - 2 x.b + x^T A0 x
+    # and A x = b at the solution, so x^T A0 x = x.b - lam |x|^2.
+    return conf_sum - (x * b).sum(dim=1) - lam * (x * x).sum(dim=1)
+
+
+def _build_chunked(y, yty, col_idx, values, mask, alpha, lam, precision,
+                   chunk_b=None):
+    """:func:`_build_bucket` over chunks of ``chunk_b`` rows (bounding the
+    (chunk_b, D, k) gathered working set, as qmf_tpu's build scan does),
+    stacked into one (A, b, conf_sum) for the whole bucket."""
+    n = col_idx.shape[0]
+    if chunk_b is None or chunk_b >= n:
+        return _build_bucket(
+            y, yty, col_idx, values, mask, alpha, lam, precision
+        )
+    k = y.shape[1]
+    # chunk results go straight into one preallocated buffer per class
+    # (no list of chunks and concatenation: A is the largest tensor)
+    a = torch.empty((n, k, k), dtype=y.dtype, device=y.device)
+    b = torch.empty((n, k), dtype=y.dtype, device=y.device)
+    conf_sum = torch.empty((n,), dtype=y.dtype, device=y.device)
+    for s in range(0, n, chunk_b):
+        e = min(s + chunk_b, n)
+        a[s:e], b[s:e], conf_sum[s:e] = _build_bucket(
+            y, yty, col_idx[s:e], values[s:e], mask[s:e], alpha, lam,
+            precision,
+        )
+    return a, b, conf_sum
+
+
+def _solve_bucket_body(y, yty, col_idx, values, mask, alpha, lam, solver,
+                       precision="highest", chunk_b=None):
+    """Build, solve and loss for one bucket of rows: (x (B,k), loss (B,)).
+
+    The build runs in chunks of ``chunk_b`` rows; the whole bucket is then
+    solved by one batched solve.
+    """
+    a, b, conf_sum = _build_chunked(
+        y, yty, col_idx, values, mask, alpha, lam, precision, chunk_b
+    )
+    x = _solve_dispatch(a, b, solver)
+    return x, _loss_from_solution(x, b, conf_sum, lam)
+
+
+def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
+                alpha, lam, solver: str, precision: str):
+    """One half-epoch: every width class of one side against fixed ``y``.
+
+    Per class: a chunked build and one batched solve (qmf_tpu's "pallas"
+    branch, als_ops.py:492-503), then the scatter of the solved rows.
+    Returns (new factors (n_rows, k), summed un-normalized loss (0-d)).
+    """
+    k = y.shape[1]
+    yty = gramian(y)
+    # padding rows carry row id n_rows: scatter into one extra sink row and
+    # slice it off (index_copy_ has no mode="drop")
+    x_out = torch.zeros((n_rows + 1, k), dtype=y.dtype, device=y.device)
+    loss = torch.zeros((), dtype=y.dtype, device=y.device)
+    for (row_ids, col_idx, values, mask), chunk_b in zip(
+        class_arrays, chunk_sizes
+    ):
+        x, row_loss = _solve_bucket_body(
+            y, yty, col_idx, values, mask, alpha, lam, solver, precision,
+            chunk_b,
+        )
+        loss = loss + row_loss.sum()
+        x_out.index_copy_(0, row_ids, x)
+    return x_out[:n_rows], loss
+
+
+def train_epoch(user_factors, item_factors, user_arrays, item_arrays,
+                alpha, lam, solver: str, precision: str, n_users: int,
+                n_items: int, user_chunks, item_chunks):
+    """One full WALS epoch: users against items, then items against the new
+    users (reference WALSEngine.cpp:82-96). Returns
+    (u_new, v_new, loss_u, loss_v); the reference logs the item-side loss."""
+    del user_factors  # recomputed from scratch each epoch (reference zeroes)
+    u_new, loss_u = _solve_side(
+        item_factors, user_arrays, user_chunks, n_users, alpha, lam, solver,
+        precision,
+    )
+    v_new, loss_v = _solve_side(
+        u_new, item_arrays, item_chunks, n_items, alpha, lam, solver,
+        precision,
+    )
+    return u_new, v_new, loss_u, loss_v
+
+
+def compute_scores(user_factors: torch.Tensor, item_factors: torch.Tensor,
+                   user_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense score matrix: scores[t, i] = <p_u(t), q_i> (replaces the
+    reference's per-user scoring loop, qmf/Engine.cpp:73-96)."""
+    u = user_factors if user_idx is None else user_factors[user_idx]
+    return torch.matmul(u, item_factors.T)
+
+
+def naive_reference_solve(
+    y: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    alpha: float,
+    lam: float,
+) -> Tuple[np.ndarray, float]:
+    """Float64 numpy oracle of the reference per-row update, for tests
+    (a copy of qmf_tpu.ops.als_ops.naive_reference_solve, a transcription
+    of WALSEngine.cpp:266-310)."""
+    k = y.shape[1]
+    a = y.T @ y
+    b = np.zeros(k)
+    loss = 0.0
+    for c, v in zip(cols, vals):
+        yj = y[c]
+        b += yj * (1.0 + alpha * v)
+        a += np.outer(yj, yj) * (alpha * v)
+        loss += 1.0 + alpha * v
+    b_mat = a.copy()
+    a = a + lam * np.eye(k)
+    x = np.linalg.solve(a, b)
+    loss += x @ b_mat @ x - 2.0 * x @ b
+    return x, loss
