@@ -16,7 +16,15 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    run on the card;
 4. the WALSEngine at ml20m scale and k = 64, 3 epochs: epoch times and
    losses, AUC, launch count, peak memory; then the kernel against the
-   plain version on that run's largest width class.
+   plain version on that run's largest width class;
+5. the build+solve kernel against its plain version, bf16 and f32 streams,
+   without and with the hot head, k in {8, 30, 64} x D in {8, 320, 512} x
+   N in {1, 13, 300}; then both timed on phase 4's largest user class;
+6. solver="fused": the CLI at ml100k (the variant without the hot head),
+   then WALSEngine at ml20m, k = 64, with hot_width = 1024 on phase 4's
+   data, 3 epochs: epoch times against phase 4's, losses, AUC within 2e-3
+   of phase 4's, launch counts, peak memory; then the hot variant against
+   its plain version on that run's largest user class, checked and timed.
 
 Then a JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, and the exit code is
@@ -41,6 +49,10 @@ ML20M_USERS, K_MAIN = 138_493, 64
 # 4097 systems of its generator even plain f32 vs f64 exceeds it
 # elementwise at k = 64, so it is applied per system). f64: 1e-10.
 F32_TOL, F64_TOL = 2e-4, 1e-10
+# Phase 5's grid, and the hot width of its hot cases and of phase 6.
+BS_KS, BS_DS, BS_NS, BS_H, HOT_WIDTH = (8, 30, 64), (8, 320, 512), \
+    (1, 13, 300), 300, 1024
+ALPHA, LAM = 40.0, 0.05  # WALSConfig's defaults
 
 
 def _normwise_err(got, want) -> tuple[float, float]:
@@ -117,6 +129,28 @@ def _time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _median_ms(fns: dict, reps: int = 5) -> dict:
+    """Median CUDA-event time of each callable, after one warm-up call
+    each, the callables taking turns."""
+    import statistics
+
+    import torch
+
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def kernel_check(ks=(8, 16, 30, 64, 128), batches=(1, 13, 4097)) -> dict:
@@ -287,13 +321,21 @@ def cli_path(preset: str = "ml100k", device: str = "cuda") -> None:
           max_abs_factor_diff_vs_cholesky=diff)
 
 
-def model_scale(preset: str = "ml20m", device: str = "cuda",
+def ml20m_data(preset: str = "ml20m"):
+    """The (train, test) split phases 4 and 6 share, and its seconds."""
+    from benchmarks.datagen import PRESETS, generate
+
+    t0 = time.time()
+    data = _split(*generate(**PRESETS[preset], seed=SEED))
+    return data, time.time() - t0
+
+
+def model_scale(data, t_data: float, device: str = "cuda",
                 nepochs: int = 3) -> dict:
     """Phase 4: WALSEngine at ml20m scale, k = 64, through the kernel."""
     import numpy as np
     import torch
 
-    from benchmarks.datagen import PRESETS, generate
     from qmf_tpu.config import MetricsConfig
     from qmf_tpu_torch import WALSConfig
     from qmf_tpu_torch.metrics import MetricsEngine
@@ -301,8 +343,7 @@ def model_scale(preset: str = "ml20m", device: str = "cuda",
     from qmf_tpu_torch.ops import als_ops, spd_solve
 
     t0 = time.time()
-    train, test = _split(*generate(**PRESETS[preset], seed=SEED))
-    t_data = time.time() - t0
+    train, test = data
     me = MetricsEngine(MetricsConfig(num_test_users=3000, seed=SEED))
     me.add_test_avg_metric("auc")
     cfg = WALSConfig(nfactors=K_MAIN, nepochs=nepochs,
@@ -361,7 +402,273 @@ def model_scale(preset: str = "ml20m", device: str = "cuda",
           classes=n_classes, launches=launches, peak_bytes=peak,
           class_rows=a.shape[0], class_max_abs_err=err, class_normwise_err=scaled,
           class_max_abs_x=scale)
-    return {"launches": launches, "max_abs_err": err}
+    return {"launches": launches, "max_abs_err": err, "engine": engine,
+            "auc": auc, "epoch_s": [dt for _, _, dt in epochs]}
+
+
+def _bs_inputs(n: int, d: int, k: int, h: int, dtype, seed: int,
+               device: str = "cuda") -> list:
+    """Seeded build_solve arguments on the card: the gathered rows of a
+    random fixed-side table with WALS weights (alpha r on ~80% of the
+    slots) and, for h > 0, a hot head of h rows observed at ~30% density."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_cols = 4 * k + 64
+    y = rng.normal(0.0, 0.3, (n_cols, k))
+    mask = rng.random((n, d)) < 0.8
+    w = ALPHA * rng.integers(1, 11, (n, d)) * 0.5 * mask
+    f32 = dict(dtype=torch.float32, device=device)
+    args = [torch.as_tensor(y[rng.integers(0, n_cols, (n, d))], **f32).to(
+        dtype), torch.as_tensor(w, **f32), torch.as_tensor(mask + w, **f32),
+        torch.as_tensor(y.T @ y + LAM * np.eye(k), **f32)]
+    if not h:
+        return args + [None, None]
+    seen = rng.random((n, h)) < 0.3
+    w_a = ALPHA * rng.integers(1, 11, (n, h)) * 0.5 * seen
+    hot = tuple(torch.as_tensor(v, **f32).to(dtype)
+                for v in (w_a, w_a + seen))
+    return args + [hot, torch.as_tensor(rng.normal(0.0, 0.3, (h, k)),
+                                        **f32).to(dtype)]
+
+
+def _bs_compare(args, tol: float) -> float:
+    """build_solve's kernel against its plain version on ``args``: raises
+    unless x and b agree normwise per row within ``tol``; returns the max
+    abs error of x."""
+    import torch
+
+    from qmf_tpu_torch.ops import build_solve
+
+    x, b = build_solve.build_solve(*args)
+    x_plain, b_plain = build_solve.build_solve_reference(*args)
+    torch.cuda.synchronize()
+    err, scaled = _normwise_err(x, x_plain)
+    b_err, b_scaled = _normwise_err(b, b_plain)
+    if not (scaled <= tol and b_scaled <= tol):
+        raise AssertionError(
+            f"build_solve vs plain: x normwise {scaled} (max abs {err}), "
+            f"b normwise {b_scaled} (max abs {b_err}), bound {tol}")
+    return err
+
+
+def _class_inputs(engine, i: int) -> list:
+    """build_solve's arguments for user class i of a trained engine, formed
+    from its item factors as als_ops._solve_side forms them."""
+    import torch
+
+    from qmf_tpu_torch.ops import als_ops
+
+    cfg = engine.config
+    _, col, val, mask = engine._user_classes[i]
+    y = engine.item_factors
+    y_s = y.to(torch.bfloat16) if cfg.matmul_precision == "default" else y
+    maskf = mask.to(val.dtype)
+    w = cfg.confidence_weight * val * maskf
+    ytyl = als_ops.gramian(y) + cfg.regularization_lambda * torch.eye(
+        y.shape[1], device=y.device)
+    args = [y_s[col], w, maskf + w, ytyl, None, None]
+    if engine._user_hot is not None:
+        ids, classes = engine._user_hot
+        args[4] = classes[i][:2]
+        args[5] = als_ops.hot_tables(y[ids], cfg.matmul_precision)[0]
+    return args
+
+
+def _biggest_user_class(engine) -> int:
+    return max(range(len(engine._user_classes)),
+               key=lambda i: engine._user_classes[i][1].shape[0])
+
+
+def fused_kernel_check(split_engine, device: str = "cuda") -> dict:
+    """Phase 5: the build+solve kernel vs plain over the grid, then both
+    (and the split path's build + chol_solve) timed on phase 4's largest
+    user class, against its trained item factors."""
+    import itertools
+
+    import torch
+
+    from qmf_tpu_torch.ops import als_ops, build_solve
+
+    t0 = time.time()
+    worst = 0.0
+    grid = list(itertools.product((torch.bfloat16, torch.float32),
+                                  (0, BS_H), BS_KS, BS_DS, BS_NS))
+    for seed, (dtype, h, k, d, n) in enumerate(grid):
+        args = _bs_inputs(n, d, k, h, dtype, seed, device)
+        worst = max(worst, _bs_compare(args, F32_TOL))
+    # rows with no weight have A = ytyl; a negative-definite ytyl gives NaN
+    # there, and the weighted rows stay SPD
+    args = _bs_inputs(8, 64, 30, 0, torch.bfloat16, 7, device)
+    for t in args[1:3]:
+        t[[2, 5]] = 0.0
+    args[3] = -LAM * torch.eye(30, device=device)
+    for x, _ in (build_solve.build_solve(*args),
+                 build_solve.build_solve_reference(*args)):
+        bad = ~torch.isfinite(x).all(dim=1)
+        if bad.tolist() != [i in (2, 5) for i in range(8)]:
+            raise AssertionError(f"non-SPD rows: {bad.tolist()}")
+
+    engine = split_engine
+    cfg = engine.config
+    i = _biggest_user_class(engine)
+    args = _class_inputs(engine, i)
+    # trained WALS systems: phase 4's bound for its trained class
+    err = _bs_compare(args, 5 * F32_TOL)
+    _, col, val, mask = engine._user_classes[i]
+    y = engine.item_factors
+    yty = als_ops.gramian(y)
+    ms = _median_ms({
+        "kernel": lambda: build_solve.build_solve(*args),
+        "plain": lambda: build_solve.build_solve_reference(*args),
+        "split": lambda: als_ops._solve_bucket_body(
+            y, yty, col, val, mask, cfg.confidence_weight,
+            cfg.regularization_lambda, "kernel", cfg.matmul_precision,
+            engine._user_chunks[i]),
+    })
+    _line("5 build_solve", t0, cases=len(grid), max_abs_err=worst,
+          timed_class=f"({col.shape[0]},{col.shape[1]},{y.shape[1]})bf16",
+          class_max_abs_err=err, kernel_ms=ms["kernel"],
+          plain_ms=ms["plain"], split_build_chol_ms=ms["split"])
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
+
+
+def _n_chunks(dataset, cfg) -> int:
+    """Build chunks of both sides, packed as WALSEngine.init packs them
+    without the hot split: one fused launch each."""
+    from qmf_tpu.data.id_index import IdIndex
+    from qmf_tpu_torch.ops.packing import chunks_for_classes, pack_width_classes
+
+    _, rows = IdIndex.from_sorted_ids_with_lookup(dataset.user_ids)
+    _, cols = IdIndex.from_sorted_ids_with_lookup(dataset.item_ids)
+    total = 0
+    for r, c in ((rows, cols), (cols, rows)):
+        classes = pack_width_classes(
+            r, c, dataset.values, int(r.max()) + 1, cfg.batch_rows,
+            width_grid=cfg.width_grid, max_classes=cfg.max_width_classes)
+        total += sum(-(-cls.shape[0] // ch) for cls, ch in
+                     zip(classes, chunks_for_classes(classes, cfg.batch_rows)))
+    return total
+
+
+def _cli_fused(preset: str = "ml100k", device: str = "cuda") -> tuple:
+    """The CLI with --solver=fused (hot_width "auto" is 0): the variant
+    without the hot head. Returns (launches, test AUC)."""
+    from benchmarks.datagen import PRESETS, generate, write_ratings
+    from qmf_tpu_torch import WALSConfig
+    from qmf_tpu_torch.cli import wals as cli
+    from qmf_tpu_torch.ops import build_solve, spd_solve
+
+    train, test = _split(*generate(**PRESETS[preset], seed=SEED))
+    cfg = WALSConfig(solver="fused")
+    expect = _n_chunks(train, cfg) * cfg.nepochs
+    with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as tmp:
+        paths = {n: os.path.join(tmp, n) for n in
+                 ("train.txt", "test.txt", "user.dat", "item.dat")}
+        for name, ds in (("train.txt", train), ("test.txt", test)):
+            write_ratings(paths[name], ds.user_ids, ds.item_ids, ds.values)
+        build_solve.launches = build_solve.launches_hot = 0
+        spd_solve.launches = 0
+        rc = cli.main([
+            f"--train_dataset={paths['train.txt']}",
+            f"--test_dataset={paths['test.txt']}",
+            "--test_avg_metrics=auc", "--solver=fused",
+            f"--user_factors={paths['user.dat']}",
+            f"--item_factors={paths['item.dat']}",
+            f"--device={device}",
+        ])
+        counts = (build_solve.launches, build_solve.launches_hot,
+                  spd_solve.launches)
+        if rc != 0:
+            raise AssertionError(f"wals CLI --solver=fused returned {rc}")
+        auc = _auc_of_files(paths["user.dat"], paths["item.dat"], test,
+                            device)[0]
+    if counts != (expect, 0, 0):
+        raise AssertionError(f"CLI --solver=fused launches (build_solve, "
+                             f"build_solve_hot, chol_solve) = {counts}, "
+                             f"expected ({expect}, 0, 0)")
+    if not auc > 0.5:
+        raise AssertionError(f"CLI --solver=fused test AUC {auc} <= 0.5")
+    return counts[0], auc
+
+
+def fused_path(data, split: dict, device: str = "cuda",
+               nepochs: int = 3) -> dict:
+    """Phase 6: solver="fused" through the CLI (ml100k, no hot head), then
+    WALSEngine at ml20m, k = 64, hot_width = 1024, on phase 4's data."""
+    import numpy as np
+    import torch
+
+    from qmf_tpu.config import MetricsConfig
+    from qmf_tpu_torch import WALSConfig
+    from qmf_tpu_torch.metrics import MetricsEngine
+    from qmf_tpu_torch.models import WALSEngine
+    from qmf_tpu_torch.ops import build_solve, spd_solve
+
+    t0 = time.time()
+    cli_launches, cli_auc = _cli_fused(device=device)
+    train, test = data
+    me = MetricsEngine(MetricsConfig(num_test_users=3000, seed=SEED))
+    me.add_test_avg_metric("auc")
+    cfg = WALSConfig(nfactors=K_MAIN, nepochs=nepochs,
+                     matmul_precision="default", batch_rows=8192,
+                     solver="fused", hot_width=HOT_WIDTH)
+    engine = WALSEngine(cfg, me, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    engine.init(train)
+    engine.init_test(test)
+    torch.cuda.synchronize()
+    t_init = time.time() - t1
+    epochs = []
+    engine.progress_cb = lambda e, loss, dt: epochs.append((e, loss, dt))
+    chunks = sum(-(-c[1].shape[0] // ch) for c, ch in zip(
+        engine._user_classes + engine._item_classes,
+        engine._user_chunks + engine._item_chunks))
+    build_solve.launches = build_solve.launches_hot = 0
+    spd_solve.launches = 0
+    engine.optimize()
+    counts = (build_solve.launches, build_solve.launches_hot,
+              spd_solve.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss, _ in epochs]
+    if counts != (0, chunks * nepochs, 0):
+        raise AssertionError(
+            f"launches (build_solve, build_solve_hot, chol_solve) = "
+            f"{counts}, expected (0, {chunks} chunks x {nepochs} epochs, 0)")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+    if any(b >= a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"losses did not fall: {losses}")
+    _, auc = me.last("test_avg_auc")
+    if not abs(auc - split["auc"]) <= 2e-3:
+        raise AssertionError(f"fused+hot test AUC {auc} vs split path "
+                             f"{split['auc']}: differ by more than 2e-3")
+
+    # the hot variant vs its plain version on this run's largest user
+    # class, against the trained item factors (not counted above)
+    i = _biggest_user_class(engine)
+    args = _class_inputs(engine, i)
+    err = _bs_compare(args, 5 * F32_TOL)
+    ms = _median_ms({
+        "kernel": lambda: build_solve.build_solve(*args),
+        "plain": lambda: build_solve.build_solve_reference(*args),
+    })
+    _line("6 fused", t0, cli_preset="ml100k", cli_launches=cli_launches,
+          cli_test_auc=cli_auc, users=engine.nusers, items=engine.nitems,
+          k=K_MAIN, hot_width=HOT_WIDTH, init_s=round(t_init, 3),
+          epoch_s=[round(dt, 4) for _, _, dt in epochs],
+          split_epoch_s=[round(dt, 4) for dt in split["epoch_s"]],
+          losses=[f"{x:.10g}" for x in losses], test_auc=auc,
+          split_test_auc=split["auc"], chunks=chunks, launches=counts[1],
+          peak_bytes=peak,
+          timed_class=f"({args[0].shape[0]},{args[0].shape[1]},{K_MAIN})"
+                      f"bf16+H{args[5].shape[0]}",
+          class_max_abs_err=err, kernel_ms=ms["kernel"],
+          plain_ms=ms["plain"])
+    return {"launches": counts[1], "cli_launches": cli_launches,
+            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
 
 
 def main() -> int:
@@ -371,7 +678,12 @@ def main() -> int:
     build()
     timing = kernel_check()
     cli_path()
-    main_path = model_scale()
+    data, t_data = ml20m_data()
+    main_path = model_scale(data, t_data)
+    fused_timing = fused_kernel_check(main_path.pop("engine"))
+    torch.cuda.empty_cache()
+    fused = fused_path(data, main_path)
+    source = "qmf_tpu_torch/csrc/build_solve.cu"
     print(json.dumps({"kernels": [{
         "name": "chol_solve",
         "route": "cuda",
@@ -381,6 +693,24 @@ def main() -> int:
         "max_abs_err": main_path["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
+    }, {
+        "name": "build_solve",
+        "route": "cuda",
+        "source": source,
+        "replaces": "qmf_tpu/ops/pallas_solve.py:502",
+        "launches": fused["cli_launches"],
+        "max_abs_err": fused_timing["max_abs_err"],
+        "ms": fused_timing["ms"],
+        "plain_ms": fused_timing["plain_ms"],
+    }, {
+        "name": "build_solve_hot",
+        "route": "cuda",
+        "source": source,
+        "replaces": "qmf_tpu/ops/pallas_solve.py:534",
+        "launches": fused["launches"],
+        "max_abs_err": fused["max_abs_err"],
+        "ms": fused["ms"],
+        "plain_ms": fused["plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

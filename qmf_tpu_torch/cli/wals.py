@@ -75,7 +75,8 @@ def make_flags() -> Flags:
     fl.define_string(
         "solver",
         "auto",
-        "per-row solver: kernel (hand-written CUDA) | cholesky (plain "
+        "per-row solver: kernel (hand-written CUDA solve) | fused "
+        "(hand-written CUDA build+solve, float32 only) | cholesky (plain "
         "torch) | lu | auto (kernel on a CUDA device, cholesky elsewhere)",
     )
     fl.define_integer("batch_rows", 4096, "max rows per build chunk")

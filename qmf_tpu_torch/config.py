@@ -7,8 +7,8 @@ gflags defaults in qmf/wals.cpp:26-31), plus the knobs the port implements.
 
 Every enum is validated when the config is built, so a typo fails before any
 data is read. ``qmf_tpu`` knobs that the port does not implement yet
-(``hot_width``, ``device_pack``, ``class_solve``, ``fuse_epoch``) are not
-fields here; see ROADMAP.md.
+(``device_pack``, ``class_solve``, ``fuse_epoch``) are not fields here; see
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import dataclasses
 from qmf_tpu.config import MetricsConfig  # noqa: F401  (re-exported)
 
 DTYPES = ("float32", "float64")
-SOLVERS = ("auto", "kernel", "cholesky", "lu")
+SOLVERS = ("auto", "kernel", "fused", "cholesky", "lu")
 MATMUL_PRECISIONS = ("highest", "default")
 WIDTH_GRIDS = ("pow2", "pow2_15", "pow2_q")
 
@@ -26,8 +26,6 @@ WIDTH_GRIDS = ("pow2", "pow2_15", "pow2_q")
 _REJECTED_SOLVERS = {
     "pallas": "is the TPU kernel; the port's hand-written CUDA kernel is "
     "solver='kernel'",
-    "fused": "(the fused build+solve kernel) is not ported yet; it is "
-    "queued in ROADMAP.md",
     "cholesky_matmul": "exists only for TPU XLA (qmf_tpu/ops/linalg.py:1-9)",
     "schur": "exists only for TPU XLA (qmf_tpu/ops/linalg.py:1-9)",
     "cholesky_xla": "exists only for TPU XLA (qmf_tpu/ops/linalg.py:1-9)",
@@ -57,8 +55,10 @@ class WALSConfig:
     dtype: str = "float32"
     # "auto" resolves to "kernel" (the hand-written CUDA factor+solve) on a
     # CUDA device when k fits its shared memory, and to "cholesky" (plain
-    # torch.linalg.cholesky_ex + cholesky_solve) otherwise. "lu" is the
-    # general solve that tolerates indefinite systems like dsysv_.
+    # torch.linalg.cholesky_ex + cholesky_solve) otherwise. "fused" builds
+    # and solves each row's normal equations in one hand-written CUDA kernel
+    # (ops/build_solve.py; its plain version on the CPU), float32 only. "lu"
+    # is the general solve that tolerates indefinite systems like dsysv_.
     solver: str = "auto"
     # Max rows per build chunk at the narrowest width (bounds the gathered
     # working set; wider classes take proportionally fewer rows).
@@ -74,6 +74,13 @@ class WALSConfig:
     # Width-class coalescing (qmf_tpu/ops/packing.py coalesce_widths).
     max_width_classes: int = 12
     min_class_nnz_frac: float = 0.0
+    # Hot/cold split build (ops/hot.py): the entries of each side's H hottest
+    # fixed-side columns leave the gathered stream and enter A and b through
+    # dense per-row weights (W_a @ Z, W_b @ y_hot). An int forces that H on
+    # both sides; 0 disables. "auto" resolves to 0 in the port: qmf_tpu's
+    # cost model was fitted on a TPU, and no H100 measurement shows yet that
+    # the split pays (ROADMAP.md).
+    hot_width: int | str = "auto"
 
     def __post_init__(self) -> None:
         if self.solver in _REJECTED_SOLVERS:
@@ -87,3 +94,17 @@ class WALSConfig:
             "matmul_precision", self.matmul_precision, MATMUL_PRECISIONS
         )
         _check_choice("width_grid", self.width_grid, WIDTH_GRIDS)
+        if self.solver == "fused" and self.dtype != "float32":
+            raise ValueError(
+                f"WALS solver 'fused' runs in float32 only, not "
+                f"{self.dtype!r}: the build+solve kernel accumulates and "
+                "solves in f32, as qmf_tpu's fused kernel does "
+                "(qmf_tpu/ops/pallas_solve.py:483-491)"
+            )
+        hw = self.hot_width
+        if hw != "auto" and (
+            isinstance(hw, bool) or not isinstance(hw, int) or hw < 0
+        ):
+            raise ValueError(
+                f"WALS hot_width must be 'auto' or an int >= 0, got {hw!r}"
+            )

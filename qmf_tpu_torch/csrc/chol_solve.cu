@@ -19,20 +19,21 @@
 // Making it fast (several systems per block, tensor-core panel updates, TMA
 // loads) is later work.
 //
-// A non-positive pivot gives NaN through sqrt, with no clamping; the NaN
-// spreads over that system's x, so the caller's finiteness guard fires.
+// The factor and both substitutions are qmf::factor_solve (chol_core.cuh),
+// which build_solve.cu shares. A non-positive pivot gives NaN through sqrt,
+// with no clamping; the NaN spreads over that system's x, so the caller's
+// finiteness guard fires.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "chol_core.cuh"
+
 namespace {
 
-// Opt-in shared memory per block on sm_90 (227 KB).
-constexpr size_t kMaxSmemBytes = 232448;
-
-// Odd row stride: a column walk (rows r, r+1, ...) hits distinct banks.
-__host__ __device__ inline int lead_dim(int k) { return k | 1; }
+using qmf::kMaxSmemBytes;
+using qmf::lead_dim;
 
 template <typename T>
 size_t smem_bytes(int k) {
@@ -70,49 +71,8 @@ __global__ void chol_solve_kernel(const T* __restrict__ a,
   }
   __syncthreads();
 
-  // Factor. Step p reads the pivot s[p][p], scales column p below it, then
-  // subtracts the rank-1 product from the trailing lower triangle. Neither
-  // phase writes the pivot, and the update never writes column p.
-  for (int p = 0; p < k; ++p) {
-    const T inv = T(1) / sqrt(s[p * ld + p]);
-    for (int r = p + 1 + tid; r < k; r += nthreads) {
-      s[r * ld + p] *= inv;
-    }
-    if (tid == 0) inv_diag[p] = inv;
-    __syncthreads();
-    for (int r = p + 1 + warp; r < k; r += nwarps) {
-      const T l_rp = s[r * ld + p];
-      for (int c = p + 1 + lane; c <= r; c += 32) {
-        s[r * ld + c] -= l_rp * s[c * ld + p];
-      }
-    }
-    __syncthreads();
-  }
-
-  // The two substitutions run in warp 0, lanes over rows.
+  qmf::factor_solve(s, ld, inv_diag, z, k);
   if (warp != 0) return;
-  // Forward: L z = b.
-  for (int p = 0; p < k; ++p) {
-    const T zp = z[p] * inv_diag[p];
-    __syncwarp();
-    for (int r = p + 1 + lane; r < k; r += 32) {
-      z[r] -= s[r * ld + p] * zp;
-    }
-    if (lane == 0) z[p] = zp;
-    __syncwarp();
-  }
-  // Backward: L^T x = z, in place; rows > p already hold x.
-  for (int p = k - 1; p >= 0; --p) {
-    T acc = T(0);
-    for (int r = p + 1 + lane; r < k; r += 32) {
-      acc += s[r * ld + p] * z[r];
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    }
-    if (lane == 0) z[p] = (z[p] - acc) * inv_diag[p];
-    __syncwarp();
-  }
   for (int r = lane; r < k; r += 32) {
     x[sys * sx_b + r * sx_r] = z[r];
   }

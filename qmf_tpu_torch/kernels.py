@@ -1,10 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources under ``qmf_tpu_torch/csrc/`` have a plain C interface. At first
-use they are compiled with ``nvcc`` for ``sm_90a`` into
-``qmf_tpu_torch/_build/libqmf_kernels.so`` and loaded with ``ctypes``. The
-build runs under a file lock and is cached by a hash of the sources and the
-flags, so concurrent processes build once and a changed source rebuilds.
+use each is compiled with ``nvcc`` for ``sm_90a``, all at once in parallel,
+and the objects are linked into ``qmf_tpu_torch/_build/libqmf_kernels.so``,
+which is loaded with ``ctypes``. The build runs under a file lock and is
+cached by a hash of the sources, the shared headers and the flags, so
+concurrent processes build once and a changed file rebuilds.
 Nothing here runs at import time: this module is imported on machines with no
 CUDA toolkit, where :func:`available` is False.
 
@@ -24,15 +25,18 @@ import subprocess
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("csrc/chol_solve.cu",)
+SOURCES = ("csrc/chol_solve.cu", "csrc/build_solve.cu")
+HEADERS = ("csrc/chol_core.cuh",)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libqmf_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Opt-in shared memory per block on sm_90 (csrc/chol_solve.cu kMaxSmemBytes).
+# Opt-in shared memory per block on sm_90 (csrc/chol_core.cuh kMaxSmemBytes).
 MAX_SMEM_BYTES = 232448
+# csrc/build_solve.cu: register tile edge and reduction rows staged per step.
+_BS_TILE, _BS_STAGE = 4, 32
 
 _lib = None  # the loaded library, once per process
 build_log = ""  # nvcc's output of the build this process ran (ptxas -v)
@@ -59,7 +63,7 @@ def available() -> bool:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for rel in SOURCES:
+    for rel in SOURCES + HEADERS:
         with open(os.path.join(_PKG_DIR, rel), "rb") as f:
             h.update(rel.encode())
             h.update(f.read())
@@ -89,15 +93,28 @@ def build() -> str:
                 "CUDA_HOME or put nvcc on PATH)"
             )
         tmp = LIB_PATH + f".tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(_PKG_DIR, s) for s in SOURCES)]
+        objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(_PKG_DIR, src),
+                 "-o", obj] for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        outs = [p.communicate() for p in procs]
+        for cmd, proc, (out, err) in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}"
+                )
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stderr}"
             )
-        build_log = proc.stdout + proc.stderr
+        for obj in objs:
+            os.remove(obj)
+        build_log = "".join(out + err for out, err in outs)
         os.replace(tmp, LIB_PATH)
         with open(stamp, "w") as f:
             f.write(digest)
@@ -114,6 +131,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, ll, ci, ll, ll, ll, ll, ll, ll, ll,
                            ci, vp]
+            fn.restype = ci
+        for name in ("qmf_build_solve_f32", "qmf_build_solve_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp] * 9 + [ll, ci, ci, ci, ci, vp]
             fn.restype = ci
         lib.qmf_cuda_error_string.argtypes = [ci]
         lib.qmf_cuda_error_string.restype = ctypes.c_char_p
@@ -153,4 +174,51 @@ def launch_chol_solve(a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(
             f"chol_solve launch failed (B={bsz}, k={k}, {a.dtype}): "
             f"CUDA error {err}: {msg}"
+        )
+
+
+def build_solve_max_k() -> int:
+    """Largest k whose build+solve block fits shared memory (f32 A plus
+    the staged rows of csrc/build_solve.cu)."""
+
+    def smem(k: int) -> int:
+        head = (k * (k | 1) + 2 * k + 3) // 4 * 4
+        kp = -(-k // _BS_TILE) * _BS_TILE
+        return (head + 2 * _BS_STAGE * kp + 2 * _BS_STAGE) * 4
+
+    k = 1
+    while smem(k + 1) <= MAX_SMEM_BYTES:
+        k += 1
+    return k
+
+
+def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
+                       ytyl: torch.Tensor, w_a: torch.Tensor | None,
+                       w_b: torch.Tensor | None, y_hot: torch.Tensor | None,
+                       x: torch.Tensor, b: torch.Tensor) -> None:
+    """Launch csrc/build_solve.cu on the current stream.
+
+    All tensors contiguous on one CUDA device: yg (N, D, k) bf16 or f32;
+    w, conf (N, D), ytyl (k, k), x and b (N, k) f32; with the hot head,
+    w_a and w_b (N, H) and y_hot (H, k) of yg's dtype (None without it).
+    Does not synchronise. Raises on a refused launch.
+    """
+    lib = load()
+    fn = {torch.float32: lib.qmf_build_solve_f32,
+          torch.bfloat16: lib.qmf_build_solve_bf16}[yg.dtype]
+    n, d, k = yg.shape
+    h = 0 if y_hot is None else y_hot.shape[0]
+    hot_ptrs = ((None, None, None) if y_hot is None
+                else (w_a.data_ptr(), w_b.data_ptr(), y_hot.data_ptr()))
+    err = fn(
+        yg.data_ptr(), w.data_ptr(), conf.data_ptr(), ytyl.data_ptr(),
+        *hot_ptrs, x.data_ptr(), b.data_ptr(), n, d, k, h,
+        yg.device.index if yg.device.index is not None else 0,
+        torch.cuda.current_stream(yg.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.qmf_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"build_solve launch failed (N={n}, D={d}, k={k}, H={h}, "
+            f"{yg.dtype}): CUDA error {err}: {msg}"
         )

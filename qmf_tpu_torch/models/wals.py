@@ -10,7 +10,11 @@
   nusers*nitems (reference WALSEngine.cpp:82-96).
 - Each half-epoch is ops/als_ops.py ``_solve_side``: per width class a
   chunked build and one batched SPD solve, which on a CUDA device is the
-  hand-written kernel (solver "kernel").
+  hand-written kernel (solver "kernel"); or, with solver "fused", one
+  build+solve kernel launch per chunk.
+- ``hot_width`` > 0 splits each side's H hottest fixed-side columns out of
+  the gathered stream into static per-row weights (ops/hot.py), built once
+  here; "auto" resolves to 0 in the port.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from qmf_tpu_torch import kernels
 from qmf_tpu_torch.config import WALSConfig
 from qmf_tpu_torch.models.engine import Engine
 from qmf_tpu_torch.ops import als_ops
+from qmf_tpu_torch.ops import hot as hot_ops
 from qmf_tpu_torch.ops.packing import (
     chunks_for_classes,
     pack_width_classes,
@@ -40,6 +45,8 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 # One width class on the device: (row_ids, col_idx, values, mask).
 ClassArrays = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# One side's hot state: (hot column ids, per-class (w_a, w_b, conf_hot)).
+HotState = Tuple[torch.Tensor, List[Tuple[torch.Tensor, ...]]]
 
 
 class WALSEngine(Engine):
@@ -66,6 +73,8 @@ class WALSEngine(Engine):
         self._item_classes: List[ClassArrays] = []
         self._user_chunks: List[int] = []
         self._item_chunks: List[int] = []
+        self._user_hot: Optional[HotState] = None
+        self._item_hot: Optional[HotState] = None
         self._solver: Optional[str] = None
         self._ckpt_dir: Optional[str] = None
         self._ckpt_every = 1
@@ -101,6 +110,51 @@ class WALSEngine(Engine):
             return "kernel"
         return "cholesky"
 
+    def _resolve_hot_width(self) -> int:
+        """The hot_width knob for one side's build (0 = no split). "auto"
+        is 0 in the port: qmf_tpu's cost model (ops/hot.py) was fitted on
+        a TPU, and no H100 measurement shows yet that the split pays."""
+        hw = self.config.hot_width
+        return 0 if hw == "auto" else int(hw)
+
+    def _hot_store_dtype(self) -> torch.dtype:
+        """Storage dtype of the static hot weights W_a/W_b: bf16 when the
+        build runs on bf16 operands anyway, else the engine dtype."""
+        if (self.dtype == torch.float32
+                and self.config.matmul_precision == "default"):
+            return torch.bfloat16
+        return self.dtype
+
+    def _pack_side_host(self, rows, cols, vals, n_rows, n_cols, deg_rows,
+                        deg_cols, h):
+        """Host-pack one side, hot/cold split when ``h`` > 0 (qmf_tpu
+        models/wals.py:193-227). Returns (classes, hot state or None)."""
+        cfg = self.config
+        kw = dict(row_multiple=8, width_grid=cfg.width_grid,
+                  max_classes=cfg.max_width_classes,
+                  min_class_nnz_frac=cfg.min_class_nnz_frac)
+        if h <= 0:
+            return pack_width_classes(rows, cols, vals, n_rows,
+                                      cfg.batch_rows, **kw), None
+        hot_ids = hot_ops.top_hot_columns(deg_cols, h)
+        h = len(hot_ids)
+        col_rank = hot_ops.rank_lookup(hot_ids, n_cols)
+        is_hot = col_rank[cols] < h
+        # rows whose entries are all hot keep a fully masked slot
+        classes = pack_width_classes(
+            rows[~is_hot], cols[~is_hot], vals[~is_hot], n_rows,
+            cfg.batch_rows, active_mask=deg_rows > 0, **kw,
+        )
+        hot_classes = hot_ops.build_hot_classes(
+            rows[is_hot], col_rank[cols[is_hot]], vals[is_hot],
+            [c.row_ids for c in classes], n_rows, h, cfg.confidence_weight,
+            self.dtype, self._hot_store_dtype(), self.device,
+        )
+        return classes, (
+            torch.from_numpy(hot_ids.astype(np.int64)).to(self.device),
+            hot_classes,
+        )
+
     # --- lifecycle -----------------------------------------------------------
     def _to_device(self, classes) -> List[ClassArrays]:
         dev = self.device
@@ -129,22 +183,28 @@ class WALSEngine(Engine):
         )
 
         t0 = time.time()
+        deg_u = np.bincount(rows, minlength=self.nusers)
+        deg_i = np.bincount(cols, minlength=self.nitems)
+        h_user = h_item = self._resolve_hot_width()
         sides = {}
-        for side, r, c, n in (("user", rows, cols, self.nusers),
-                              ("item", cols, rows, self.nitems)):
-            classes = pack_width_classes(
-                r, c, dataset.values, n, cfg.batch_rows, row_multiple=8,
-                width_grid=cfg.width_grid, max_classes=cfg.max_width_classes,
-                min_class_nnz_frac=cfg.min_class_nnz_frac,
-            )
+        for side, r, c, n, n_cols, deg_r, deg_c, h in (
+            ("user", rows, cols, self.nusers, self.nitems, deg_u, deg_i,
+             h_user),
+            ("item", cols, rows, self.nitems, self.nusers, deg_i, deg_u,
+             h_item),
+        ):
+            classes, hot = self._pack_side_host(
+                r, c, dataset.values, n, n_cols, deg_r, deg_c, h)
             sides[side] = packed_stats(classes)
             setattr(self, f"_{side}_chunks",
                     chunks_for_classes(classes, cfg.batch_rows,
                                        row_multiple=8))
             setattr(self, f"_{side}_classes", self._to_device(classes))
+            setattr(self, f"_{side}_hot", hot)
         log.info(
-            "packed %d ratings: users %s, items %s hot=(0,0) (%.2fs)",
-            len(dataset), sides["user"], sides["item"], time.time() - t0,
+            "packed %d ratings: users %s, items %s hot=(%d,%d) (%.2fs)",
+            len(dataset), sides["user"], sides["item"], h_user, h_item,
+            time.time() - t0,
         )
 
         # item factors init: uniform or deterministic file; user factors zero
@@ -199,6 +259,7 @@ class WALSEngine(Engine):
             self._item_classes, cfg.confidence_weight,
             cfg.regularization_lambda, self._solver, cfg.matmul_precision,
             self.nusers, self.nitems, self._user_chunks, self._item_chunks,
+            self._user_hot, self._item_hot,
         )
         return float(loss) / self.nusers / self.nitems
 

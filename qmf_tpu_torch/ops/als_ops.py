@@ -9,11 +9,12 @@ equations (reference qmf/wals/WALSEngine.cpp:266-310)
 a width class of rows at a time: the Gramian is one matmul, the per-row A and
 b are a gather plus batched products, and the solves of a class are one
 batched SPD solve (ops/spd_solve.py: the hand-written CUDA kernel on a GPU).
+With solver="fused" each chunk of a class is gathered and then built and
+solved in one call (ops/build_solve.py: the fused CUDA kernel on a GPU), so
+A never leaves the kernel. With the hot/cold split (ops/hot.py) the head's
+entries enter A and b through dense per-row weights instead of the gather.
 The per-row loss uses the identity of qmf_tpu: at the solution
 x^T (A - lambda I) x = x.b - lambda |x|^2.
-
-Only the split build-then-solve path of qmf_tpu is ported; the hot/cold head
-split and the fused build+solve kernel are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,12 +24,22 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from qmf_tpu_torch.ops import spd_solve
+from qmf_tpu_torch.ops import build_solve, spd_solve
 
 
 def gramian(y: torch.Tensor) -> torch.Tensor:
     """YtY as one matmul (exact; replaces reference computeXtX)."""
     return y.T @ y
+
+
+def hot_tables(y_hot: torch.Tensor, precision: str):
+    """The hot rows in the build's operand dtype and their rank-1 table:
+    (y_hot, Z (H, k*k)) with Z[h] = vec(y_h y_h^T). Under "default" with f32
+    factors both are bf16, each product rounded to bf16, as qmf_tpu
+    computes them (als_ops.py:117-129)."""
+    if precision == "default" and y_hot.dtype == torch.float32:
+        y_hot = y_hot.to(torch.bfloat16)
+    return y_hot, build_solve.rank1_table(y_hot)
 
 
 def _flat_gather(y: torch.Tensor, col_idx: torch.Tensor) -> torch.Tensor:
@@ -38,7 +49,8 @@ def _flat_gather(y: torch.Tensor, col_idx: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision):
+def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision,
+                  hot=None, y_hot=None, z=None):
     """Normal-equation build for one padded bucket: (A (B,k,k), b (B,k),
     conf_sum (B,)); the gather + batched products, no solve.
 
@@ -47,6 +59,10 @@ def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision):
     and accumulates A and b in f32. bf16 x bf16 products are exact in f32, so
     upcasting the rounded operands and multiplying in true fp32 gives the
     f32-accumulated result; A is never rounded to bf16.
+
+    ``hot`` = (w_a (B,H), w_b (B,H), conf_hot (B,)) adds the hot head with
+    y_hot and Z from :func:`hot_tables` (als_ops.py:197-206): two GEMMs on
+    the upcast operands, in the engine dtype.
     """
     dtype = y.dtype
     k = yty.shape[0]
@@ -65,7 +81,13 @@ def _build_bucket(y, yty, col_idx, values, mask, alpha, lam, precision):
         ygw = yg * w.unsqueeze(-1)
         b = torch.bmm(conf.unsqueeze(1), yg).squeeze(1)
     a = torch.baddbmm(yty + lam * eye, ygw.transpose(1, 2), yg)
-    return a, b, conf.sum(dim=1)
+    conf_sum = conf.sum(dim=1)
+    if hot is not None:
+        w_a, w_b, conf_hot = hot
+        a = a + (w_a.to(dtype) @ z.to(dtype)).reshape(-1, k, k)
+        b = b + w_b.to(dtype) @ y_hot.to(dtype)
+        conf_sum = conf_sum + conf_hot
+    return a, b, conf_sum
 
 
 def _solve_dispatch(a: torch.Tensor, b: torch.Tensor,
@@ -88,15 +110,27 @@ def _loss_from_solution(x, b, conf_sum, lam):
     return conf_sum - (x * b).sum(dim=1) - lam * (x * x).sum(dim=1)
 
 
+def _chunks(n: int, chunk_b):
+    """(start, end) of each chunk of ``chunk_b`` rows (one if None)."""
+    step = n if chunk_b is None or chunk_b >= n else chunk_b
+    return [(s, min(s + step, n)) for s in range(0, n, max(step, 1))]
+
+
+def _hot_rows(hot, s: int, e: int):
+    """Rows [s, e) of one class's hot arrays (None passes through)."""
+    return None if hot is None else tuple(t[s:e] for t in hot)
+
+
 def _build_chunked(y, yty, col_idx, values, mask, alpha, lam, precision,
-                   chunk_b=None):
+                   chunk_b=None, hot=None, y_hot=None, z=None):
     """:func:`_build_bucket` over chunks of ``chunk_b`` rows (bounding the
     (chunk_b, D, k) gathered working set, as qmf_tpu's build scan does),
     stacked into one (A, b, conf_sum) for the whole bucket."""
     n = col_idx.shape[0]
     if chunk_b is None or chunk_b >= n:
         return _build_bucket(
-            y, yty, col_idx, values, mask, alpha, lam, precision
+            y, yty, col_idx, values, mask, alpha, lam, precision, hot, y_hot,
+            z,
         )
     k = y.shape[1]
     # chunk results go straight into one preallocated buffer per class
@@ -104,35 +138,62 @@ def _build_chunked(y, yty, col_idx, values, mask, alpha, lam, precision,
     a = torch.empty((n, k, k), dtype=y.dtype, device=y.device)
     b = torch.empty((n, k), dtype=y.dtype, device=y.device)
     conf_sum = torch.empty((n,), dtype=y.dtype, device=y.device)
-    for s in range(0, n, chunk_b):
-        e = min(s + chunk_b, n)
+    for s, e in _chunks(n, chunk_b):
         a[s:e], b[s:e], conf_sum[s:e] = _build_bucket(
             y, yty, col_idx[s:e], values[s:e], mask[s:e], alpha, lam,
-            precision,
+            precision, _hot_rows(hot, s, e), y_hot, z,
         )
     return a, b, conf_sum
 
 
 def _solve_bucket_body(y, yty, col_idx, values, mask, alpha, lam, solver,
-                       precision="highest", chunk_b=None):
+                       precision="highest", chunk_b=None, hot=None,
+                       y_hot=None, z=None):
     """Build, solve and loss for one bucket of rows: (x (B,k), loss (B,)).
 
     The build runs in chunks of ``chunk_b`` rows; the whole bucket is then
     solved by one batched solve.
     """
     a, b, conf_sum = _build_chunked(
-        y, yty, col_idx, values, mask, alpha, lam, precision, chunk_b
+        y, yty, col_idx, values, mask, alpha, lam, precision, chunk_b, hot,
+        y_hot, z,
     )
     x = _solve_dispatch(a, b, solver)
     return x, _loss_from_solution(x, b, conf_sum, lam)
 
 
+def _fused_chunk(y_s, ytyl, col_idx, values, mask, alpha, lam, hot=None,
+                 y_hot=None):
+    """One chunk through build_solve.build_solve (qmf_tpu's _class_fused,
+    als_ops.py:377-434): the gather and the weights here, the build, factor
+    and solve in one call. ``y_s`` is the fixed side in the stream dtype.
+    Returns (x (B,k) f32, loss (B,))."""
+    maskf = mask.to(values.dtype)
+    w = alpha * values * maskf
+    conf = maskf + w
+    conf_sum = conf.sum(dim=1)
+    w_ab = None
+    if hot is not None:
+        w_a, w_b, conf_hot = hot
+        conf_sum = conf_sum + conf_hot
+        w_ab = (w_a, w_b)
+    x, b = build_solve.build_solve(
+        _flat_gather(y_s, col_idx), w, conf, ytyl, w_ab,
+        y_hot if hot is not None else None,
+    )
+    return x, _loss_from_solution(x, b, conf_sum, lam)
+
+
 def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
-                alpha, lam, solver: str, precision: str):
+                alpha, lam, solver: str, precision: str, hot=None):
     """One half-epoch: every width class of one side against fixed ``y``.
 
     Per class: a chunked build and one batched solve (qmf_tpu's "pallas"
-    branch, als_ops.py:492-503), then the scatter of the solved rows.
+    branch, als_ops.py:492-503), or with solver="fused" one build+solve call
+    per chunk (its "fused" branch, :467-481, gathered per chunk rather than
+    per class: rows are independent, and the (chunk_b, D, k) stream stays
+    bounded); then the scatter of the solved rows. ``hot`` =
+    (hot_ids, [per-class (w_a, w_b, conf_hot)]) adds the hot/cold split.
     Returns (new factors (n_rows, k), summed un-normalized loss (0-d)).
     """
     k = y.shape[1]
@@ -141,12 +202,36 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
     # slice it off (index_copy_ has no mode="drop")
     x_out = torch.zeros((n_rows + 1, k), dtype=y.dtype, device=y.device)
     loss = torch.zeros((), dtype=y.dtype, device=y.device)
-    for (row_ids, col_idx, values, mask), chunk_b in zip(
-        class_arrays, chunk_sizes
+    if hot is not None:
+        hot_ids, hot_classes = hot
+        y_hot, z = hot_tables(y[hot_ids], precision)
+    else:
+        hot_classes = [None] * len(class_arrays)
+        y_hot = z = None
+    if solver == "fused":
+        ytyl = yty + lam * torch.eye(k, dtype=y.dtype, device=y.device)
+        y_s = (y.to(torch.bfloat16)
+               if precision == "default" and y.dtype == torch.float32 else y)
+        for (row_ids, col_idx, values, mask), chunk_b, hot_cls in zip(
+            class_arrays, chunk_sizes, hot_classes
+        ):
+            for s, e in _chunks(col_idx.shape[0], chunk_b):
+                x, row_loss = _fused_chunk(
+                    y_s, ytyl, col_idx[s:e], values[s:e], mask[s:e], alpha,
+                    lam, _hot_rows(hot_cls, s, e), y_hot,
+                )
+                loss = loss + row_loss.sum()
+                x_out.index_copy_(0, row_ids[s:e], x)
+        return x_out[:n_rows], loss
+    if z is not None:
+        # the split path's hot GEMMs run on operands upcast once per side
+        y_hot, z = y_hot.to(y.dtype), z.to(y.dtype)
+    for (row_ids, col_idx, values, mask), chunk_b, hot_cls in zip(
+        class_arrays, chunk_sizes, hot_classes
     ):
         x, row_loss = _solve_bucket_body(
             y, yty, col_idx, values, mask, alpha, lam, solver, precision,
-            chunk_b,
+            chunk_b, hot_cls, y_hot, z,
         )
         loss = loss + row_loss.sum()
         x_out.index_copy_(0, row_ids, x)
@@ -155,18 +240,20 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
 
 def train_epoch(user_factors, item_factors, user_arrays, item_arrays,
                 alpha, lam, solver: str, precision: str, n_users: int,
-                n_items: int, user_chunks, item_chunks):
+                n_items: int, user_chunks, item_chunks, user_hot=None,
+                item_hot=None):
     """One full WALS epoch: users against items, then items against the new
     users (reference WALSEngine.cpp:82-96). Returns
-    (u_new, v_new, loss_u, loss_v); the reference logs the item-side loss."""
+    (u_new, v_new, loss_u, loss_v); the reference logs the item-side loss.
+    ``user_hot``/``item_hot`` are each side's hot state (see _solve_side)."""
     del user_factors  # recomputed from scratch each epoch (reference zeroes)
     u_new, loss_u = _solve_side(
         item_factors, user_arrays, user_chunks, n_users, alpha, lam, solver,
-        precision,
+        precision, user_hot,
     )
     v_new, loss_v = _solve_side(
         u_new, item_arrays, item_chunks, n_items, alpha, lam, solver,
-        precision,
+        precision, item_hot,
     )
     return u_new, v_new, loss_u, loss_v
 

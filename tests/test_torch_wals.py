@@ -145,7 +145,7 @@ def test_nonfinite_loss_raises_with_remediation():
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"solver": "fused"}, "ROADMAP"),
+        ({"solver": "fused", "dtype": "float64"}, "float32 only"),
         ({"solver": "pallas"}, "kernel"),
         ({"solver": "cholesky_matmul"}, "TPU XLA"),
         ({"solver": "schur"}, "TPU XLA"),
@@ -154,6 +154,8 @@ def test_nonfinite_loss_raises_with_remediation():
         ({"dtype": "float16"}, "dtype"),
         ({"matmul_precision": "high"}, "matmul_precision"),
         ({"width_grid": "pow3"}, "width_grid"),
+        ({"hot_width": -1}, "hot_width"),
+        ({"hot_width": "wide"}, "hot_width"),
     ],
 )
 def test_config_rejects_bad_enums(kw, match):
