@@ -19,12 +19,17 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    plain version on that run's largest width class;
 5. the build+solve kernel against its plain version, bf16 and f32 streams,
    without and with the hot head, k in {8, 30, 64} x D in {8, 320, 512} x
-   N in {1, 13, 300}; then both timed on phase 4's largest user class;
+   N in {1, 13, 300}, plus wide streams split over blocks, (N, D) in
+   {(1, 4096), (8, 32768)}; then the kernel, its plain version and the
+   split path's build + chol_solve timed on phase 4's largest user class
+   and on its widest item class;
 6. solver="fused": the CLI at ml100k (the variant without the hot head),
    then WALSEngine at ml20m, k = 64, with hot_width = 1024 on phase 4's
    data, 3 epochs: epoch times against phase 4's, losses, AUC within 2e-3
    of phase 4's, launch counts, peak memory; then the hot variant against
-   its plain version on that run's largest user class, checked and timed.
+   its plain version on that run's largest user class, checked and timed;
+   then each item class of the fused+hot path, and the user and item
+   half-epochs of the split, fused and fused+hot paths, timed in turns.
 
 Then a JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, and the exit code is
@@ -49,9 +54,11 @@ ML20M_USERS, K_MAIN = 138_493, 64
 # 4097 systems of its generator even plain f32 vs f64 exceeds it
 # elementwise at k = 64, so it is applied per system). f64: 1e-10.
 F32_TOL, F64_TOL = 2e-4, 1e-10
-# Phase 5's grid, and the hot width of its hot cases and of phase 6.
+# Phase 5's grid, its wide (N, D) cases (the D split), and the hot width
+# of its hot cases and of phase 6.
 BS_KS, BS_DS, BS_NS, BS_H, HOT_WIDTH = (8, 30, 64), (8, 320, 512), \
     (1, 13, 300), 300, 1024
+BS_WIDE = ((1, 4096), (8, 32768))
 ALPHA, LAM = 40.0, 0.05  # WALSConfig's defaults
 
 
@@ -221,7 +228,7 @@ def _split(users, items, values, seed=SEED):
     """10% of the ratings, picked by a seeded RNG, held out as test."""
     import numpy as np
 
-    from qmf_tpu.data.dataset import Dataset
+    from qmf_tpu_torch.data import Dataset
 
     test = np.random.default_rng(seed).random(len(users)) < 0.1
     return (Dataset(users[~test], items[~test], values[~test]),
@@ -230,7 +237,7 @@ def _split(users, items, values, seed=SEED):
 
 def _n_classes(dataset, cfg) -> int:
     """Width classes of both sides, packed as WALSEngine.init packs them."""
-    from qmf_tpu.data.id_index import IdIndex
+    from qmf_tpu_torch.data import IdIndex
     from qmf_tpu_torch.ops.packing import pack_width_classes
 
     _, rows = IdIndex.from_sorted_ids_with_lookup(dataset.user_ids)
@@ -248,8 +255,7 @@ def _auc_of_files(user_path, item_path, test, device):
     import numpy as np
     import torch
 
-    from qmf_tpu.data import load_factors
-    from qmf_tpu.data.id_index import IdIndex
+    from qmf_tpu_torch.data import IdIndex, load_factors
     from qmf_tpu_torch.metrics import AUC
     from qmf_tpu_torch.models.engine import Engine
 
@@ -336,8 +342,7 @@ def model_scale(data, t_data: float, device: str = "cuda",
     import numpy as np
     import torch
 
-    from qmf_tpu.config import MetricsConfig
-    from qmf_tpu_torch import WALSConfig
+    from qmf_tpu_torch import MetricsConfig, WALSConfig
     from qmf_tpu_torch.metrics import MetricsEngine
     from qmf_tpu_torch.models import WALSEngine
     from qmf_tpu_torch.ops import als_ops, spd_solve
@@ -453,25 +458,36 @@ def _bs_compare(args, tol: float) -> float:
     return err
 
 
-def _class_inputs(engine, i: int) -> list:
-    """build_solve's arguments for user class i of a trained engine, formed
-    from its item factors as als_ops._solve_side forms them."""
+def _side(engine, side: str) -> tuple:
+    """(classes, chunks, hot state, fixed-side factors, rows) of one side
+    of an engine: what als_ops.train_epoch hands _solve_side."""
+    if side == "user":
+        return (engine._user_classes, engine._user_chunks, engine._user_hot,
+                engine.item_factors, engine.nusers)
+    return (engine._item_classes, engine._item_chunks, engine._item_hot,
+            engine.user_factors, engine.nitems)
+
+
+def _class_inputs(engine, i: int, side: str = "user") -> list:
+    """build_solve's arguments for class i of one side of a trained engine,
+    formed from the other side's factors as als_ops._solve_side forms
+    them."""
     import torch
 
     from qmf_tpu_torch.ops import als_ops
 
     cfg = engine.config
-    _, col, val, mask = engine._user_classes[i]
-    y = engine.item_factors
+    classes, _, hot, y, _ = _side(engine, side)
+    _, col, val, mask = classes[i]
     y_s = y.to(torch.bfloat16) if cfg.matmul_precision == "default" else y
     maskf = mask.to(val.dtype)
     w = cfg.confidence_weight * val * maskf
     ytyl = als_ops.gramian(y) + cfg.regularization_lambda * torch.eye(
         y.shape[1], device=y.device)
     args = [y_s[col], w, maskf + w, ytyl, None, None]
-    if engine._user_hot is not None:
-        ids, classes = engine._user_hot
-        args[4] = classes[i][:2]
+    if hot is not None:
+        ids, hot_classes = hot
+        args[4] = hot_classes[i][:2]
         args[5] = als_ops.hot_tables(y[ids], cfg.matmul_precision)[0]
     return args
 
@@ -481,20 +497,47 @@ def _biggest_user_class(engine) -> int:
                key=lambda i: engine._user_classes[i][1].shape[0])
 
 
+def _time_class(engine, i: int, side: str) -> tuple:
+    """Kernel, plain and the split path's build + chol_solve on class i of
+    one side, against the trained factors of the other: (shape, kernel
+    max abs error, {name: median ms})."""
+    from qmf_tpu_torch.ops import als_ops, build_solve
+
+    cfg = engine.config
+    classes, chunks, _, y, _ = _side(engine, side)
+    _, col, val, mask = classes[i]
+    args = _class_inputs(engine, i, side)
+    # trained WALS systems: phase 4's bound for its trained class
+    err = _bs_compare(args, 5 * F32_TOL)
+    yty = als_ops.gramian(y)
+    ms = _median_ms({
+        "kernel": lambda: build_solve.build_solve(*args),
+        "plain": lambda: build_solve.build_solve_reference(*args),
+        "split": lambda: als_ops._solve_bucket_body(
+            y, yty, col, val, mask, cfg.confidence_weight,
+            cfg.regularization_lambda, "kernel", cfg.matmul_precision,
+            chunks[i]),
+    })
+    return f"({col.shape[0]},{col.shape[1]},{y.shape[1]})bf16", err, ms
+
+
 def fused_kernel_check(split_engine, device: str = "cuda") -> dict:
-    """Phase 5: the build+solve kernel vs plain over the grid, then both
-    (and the split path's build + chol_solve) timed on phase 4's largest
-    user class, against its trained item factors."""
+    """Phase 5: the build+solve kernel vs plain over the grid and the wide
+    cases, then the kernel, plain and the split path timed on phase 4's
+    largest user class and widest item class, against its trained
+    factors."""
     import itertools
 
     import torch
 
-    from qmf_tpu_torch.ops import als_ops, build_solve
+    from qmf_tpu_torch.ops import build_solve
 
     t0 = time.time()
     worst = 0.0
     grid = list(itertools.product((torch.bfloat16, torch.float32),
                                   (0, BS_H), BS_KS, BS_DS, BS_NS))
+    grid += [(dtype, h, k, d, n) for dtype, h, k, (n, d) in itertools.product(
+        (torch.bfloat16, torch.float32), (0, BS_H), BS_KS, BS_WIDE)]
     for seed, (dtype, h, k, d, n) in enumerate(grid):
         args = _bs_inputs(n, d, k, h, dtype, seed, device)
         worst = max(worst, _bs_compare(args, F32_TOL))
@@ -511,33 +554,25 @@ def fused_kernel_check(split_engine, device: str = "cuda") -> dict:
             raise AssertionError(f"non-SPD rows: {bad.tolist()}")
 
     engine = split_engine
-    cfg = engine.config
-    i = _biggest_user_class(engine)
-    args = _class_inputs(engine, i)
-    # trained WALS systems: phase 4's bound for its trained class
-    err = _bs_compare(args, 5 * F32_TOL)
-    _, col, val, mask = engine._user_classes[i]
-    y = engine.item_factors
-    yty = als_ops.gramian(y)
-    ms = _median_ms({
-        "kernel": lambda: build_solve.build_solve(*args),
-        "plain": lambda: build_solve.build_solve_reference(*args),
-        "split": lambda: als_ops._solve_bucket_body(
-            y, yty, col, val, mask, cfg.confidence_weight,
-            cfg.regularization_lambda, "kernel", cfg.matmul_precision,
-            engine._user_chunks[i]),
-    })
+    user_shape, err, ms = _time_class(engine, _biggest_user_class(engine),
+                                      "user")
+    widest = max(range(len(engine._item_classes)),
+                 key=lambda i: engine._item_classes[i][1].shape[1])
+    item_shape, item_err, item_ms = _time_class(engine, widest, "item")
     _line("5 build_solve", t0, cases=len(grid), max_abs_err=worst,
-          timed_class=f"({col.shape[0]},{col.shape[1]},{y.shape[1]})bf16",
-          class_max_abs_err=err, kernel_ms=ms["kernel"],
-          plain_ms=ms["plain"], split_build_chol_ms=ms["split"])
+          timed_class=user_shape, class_max_abs_err=err,
+          kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+          split_build_chol_ms=ms["split"], widest_item_class=item_shape,
+          item_max_abs_err=item_err, item_kernel_ms=item_ms["kernel"],
+          item_plain_ms=item_ms["plain"],
+          item_split_build_chol_ms=item_ms["split"])
     return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
 
 
 def _n_chunks(dataset, cfg) -> int:
     """Build chunks of both sides, packed as WALSEngine.init packs them
     without the hot split: one fused launch each."""
-    from qmf_tpu.data.id_index import IdIndex
+    from qmf_tpu_torch.data import IdIndex
     from qmf_tpu_torch.ops.packing import chunks_for_classes, pack_width_classes
 
     _, rows = IdIndex.from_sorted_ids_with_lookup(dataset.user_ids)
@@ -593,15 +628,54 @@ def _cli_fused(preset: str = "ml100k", device: str = "cuda") -> tuple:
     return counts[0], auc
 
 
-def fused_path(data, split: dict, device: str = "cuda",
+def _half_epoch_ms(paths: dict) -> dict:
+    """Median ms of the user and item half-epochs (als_ops._solve_side on
+    an engine's classes and trained factors) of each path, name ->
+    (engine, solver), the paths taking turns."""
+    from qmf_tpu_torch.ops import als_ops
+
+    fns = {}
+    for name, (engine, solver) in paths.items():
+        cfg = engine.config
+        for side in ("user", "item"):
+            classes, chunks, hot, y, n = _side(engine, side)
+            fns[f"{name}_{side}"] = (
+                lambda y=y, c=classes, ch=chunks, n=n, hot=hot, s=solver,
+                cfg=cfg: als_ops._solve_side(
+                    y, c, ch, n, cfg.confidence_weight,
+                    cfg.regularization_lambda, s, cfg.matmul_precision, hot))
+    return _median_ms(fns, reps=3)
+
+
+def _item_class_ms(engine) -> list:
+    """(rows, width, median ms) of each item class of a fused engine, one
+    class at a time through als_ops._solve_side."""
+    from qmf_tpu_torch.ops import als_ops
+
+    cfg = engine.config
+    classes, chunks, hot, y, n = _side(engine, "item")
+    fns = {}
+    for i in range(len(classes)):
+        one_hot = None if hot is None else (hot[0], [hot[1][i]])
+        fns[i] = (lambda i=i, one_hot=one_hot: als_ops._solve_side(
+            y, [classes[i]], [chunks[i]], n, cfg.confidence_weight,
+            cfg.regularization_lambda, "fused", cfg.matmul_precision,
+            one_hot))
+    ms = _median_ms(fns, reps=3)
+    return [(classes[i][1].shape[0], classes[i][1].shape[1], ms[i])
+            for i in fns]
+
+
+def fused_path(data, split: dict, split_engine, device: str = "cuda",
                nepochs: int = 3) -> dict:
     """Phase 6: solver="fused" through the CLI (ml100k, no hot head), then
-    WALSEngine at ml20m, k = 64, hot_width = 1024, on phase 4's data."""
+    WALSEngine at ml20m, k = 64, hot_width = 1024, on phase 4's data; then
+    its item classes, and the half-epochs of the split path and the fused
+    path without the hot head (both on phase 4's engine) and with it."""
     import numpy as np
     import torch
 
-    from qmf_tpu.config import MetricsConfig
-    from qmf_tpu_torch import WALSConfig
+    from qmf_tpu_torch import MetricsConfig, WALSConfig
     from qmf_tpu_torch.metrics import MetricsEngine
     from qmf_tpu_torch.models import WALSEngine
     from qmf_tpu_torch.ops import build_solve, spd_solve
@@ -655,6 +729,10 @@ def fused_path(data, split: dict, device: str = "cuda",
         "kernel": lambda: build_solve.build_solve(*args),
         "plain": lambda: build_solve.build_solve_reference(*args),
     })
+    item_classes = _item_class_ms(engine)
+    half = _half_epoch_ms({"split": (split_engine, "kernel"),
+                           "fused": (split_engine, "fused"),
+                           "fused_hot": (engine, "fused")})
     _line("6 fused", t0, cli_preset="ml100k", cli_launches=cli_launches,
           cli_test_auc=cli_auc, users=engine.nusers, items=engine.nitems,
           k=K_MAIN, hot_width=HOT_WIDTH, init_s=round(t_init, 3),
@@ -666,7 +744,11 @@ def fused_path(data, split: dict, device: str = "cuda",
           timed_class=f"({args[0].shape[0]},{args[0].shape[1]},{K_MAIN})"
                       f"bf16+H{args[5].shape[0]}",
           class_max_abs_err=err, kernel_ms=ms["kernel"],
-          plain_ms=ms["plain"])
+          plain_ms=ms["plain"],
+          item_class_ms="[" + ",".join(
+              f"({r},{w},{t:.4f})" for r, w, t in item_classes) + "]",
+          **{f"half_epoch_ms_{name}": round(t, 4)
+             for name, t in half.items()})
     return {"launches": counts[1], "cli_launches": cli_launches,
             "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
 
@@ -680,9 +762,10 @@ def main() -> int:
     cli_path()
     data, t_data = ml20m_data()
     main_path = model_scale(data, t_data)
-    fused_timing = fused_kernel_check(main_path.pop("engine"))
+    split_engine = main_path.pop("engine")
+    fused_timing = fused_kernel_check(split_engine)
     torch.cuda.empty_cache()
-    fused = fused_path(data, main_path)
+    fused = fused_path(data, main_path, split_engine)
     source = "qmf_tpu_torch/csrc/build_solve.cu"
     print(json.dumps({"kernels": [{
         "name": "chol_solve",

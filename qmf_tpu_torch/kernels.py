@@ -17,10 +17,12 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -35,8 +37,6 @@ NVCC_FLAGS = (
 )
 # Opt-in shared memory per block on sm_90 (csrc/chol_core.cuh kMaxSmemBytes).
 MAX_SMEM_BYTES = 232448
-# csrc/build_solve.cu: register tile edge and reduction rows staged per step.
-_BS_TILE, _BS_STAGE = 4, 32
 
 _lib = None  # the loaded library, once per process
 build_log = ""  # nvcc's output of the build this process ran (ptxas -v)
@@ -134,14 +134,17 @@ def load() -> ctypes.CDLL:
             fn.restype = ci
         for name in ("qmf_build_solve_f32", "qmf_build_solve_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [vp] * 9 + [ll, ci, ci, ci, ci, vp]
+            fn.argtypes = [vp] * 13 + [ll] + [ci] * 6 + [vp]
             fn.restype = ci
+        lib.qmf_build_solve_limits.argtypes = [ci, ctypes.POINTER(ci)]
+        lib.qmf_build_solve_limits.restype = None
         lib.qmf_cuda_error_string.argtypes = [ci]
         lib.qmf_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+@functools.lru_cache(maxsize=None)
 def chol_solve_max_k(dtype: torch.dtype) -> int:
     """Largest k whose system fits one block's shared memory."""
     item = torch.empty((), dtype=dtype).element_size()
@@ -177,42 +180,76 @@ def launch_chol_solve(a: torch.Tensor, b: torch.Tensor,
         )
 
 
-def build_solve_max_k() -> int:
-    """Largest k whose build+solve block fits shared memory (f32 A plus
-    the staged rows of csrc/build_solve.cu)."""
+class BuildSolveLimits(NamedTuple):
+    """What csrc/build_solve.cu takes for one stream dtype: the largest k
+    (bounded by the row block's shared memory: its A, 1/diag and b, then
+    the stream stage), the widest H slice of the hot head's GEMM (bounded
+    by its Z tile), and that GEMM's rows and output columns per unit."""
 
-    def smem(k: int) -> int:
-        head = (k * (k | 1) + 2 * k + 3) // 4 * 4
-        kp = -(-k // _BS_TILE) * _BS_TILE
-        return (head + 2 * _BS_STAGE * kp + 2 * _BS_STAGE) * 4
+    max_k: int
+    hot_max_slice: int
+    hot_tile_rows: int
+    hot_tile_cols: int
 
-    k = 1
-    while smem(k + 1) <= MAX_SMEM_BYTES:
-        k += 1
-    return k
+
+@functools.lru_cache(maxsize=None)
+def build_solve_limits(dtype: torch.dtype) -> BuildSolveLimits:
+    """The build+solve kernels' limits for a ``dtype`` stream, as the
+    library reports them."""
+    out = (ctypes.c_int * len(BuildSolveLimits._fields))()
+    load().qmf_build_solve_limits(int(dtype == torch.bfloat16), out)
+    return BuildSolveLimits(*out)
+
+
+def build_solve_max_k(dtype: torch.dtype) -> int:
+    """Largest k the build+solve kernels take for a ``dtype`` stream."""
+    return build_solve_limits(dtype).max_k
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
                        ytyl: torch.Tensor, w_a: torch.Tensor | None,
                        w_b: torch.Tensor | None, y_hot: torch.Tensor | None,
-                       x: torch.Tensor, b: torch.Tensor) -> None:
+                       x: torch.Tensor, b: torch.Tensor, h_slices: int = 1,
+                       n_slices: int = 1) -> None:
     """Launch csrc/build_solve.cu on the current stream.
 
     All tensors contiguous on one CUDA device: yg (N, D, k) bf16 or f32;
     w, conf (N, D), ytyl (k, k), x and b (N, k) f32; with the hot head,
     w_a and w_b (N, H) and y_hot (H, k) of yg's dtype (None without it).
-    Does not synchronise. Raises on a refused launch.
+    ``h_slices`` > 1 splits the hot head's GEMM over H, ``n_slices`` > 1
+    each row's stream over D, over that many blocks. The kernels' scratch
+    (the hot head's a0/b0, the split's partials) is allocated here, on the
+    current stream. Does not synchronise. Raises on a refused launch.
     """
     lib = load()
     fn = {torch.float32: lib.qmf_build_solve_f32,
           torch.bfloat16: lib.qmf_build_solve_bf16}[yg.dtype]
     n, d, k = yg.shape
     h = 0 if y_hot is None else y_hot.shape[0]
-    hot_ptrs = ((None, None, None) if y_hot is None
-                else (w_a.data_ptr(), w_b.data_ptr(), y_hot.data_ptr()))
+    pairs = k * (k + 1) // 2
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=yg.device)
+
+    hot_ptrs = [None] * 5
+    if h:
+        a0, b0 = scratch(n, h_slices, pairs), scratch(n, h_slices, k)
+        hot_ptrs = [w_a.data_ptr(), w_b.data_ptr(), y_hot.data_ptr(),
+                    a0.data_ptr(), b0.data_ptr()]
+    ws_ptrs = [None, None]
+    if n_slices > 1:
+        ws_a, ws_b = scratch(n, n_slices, pairs), scratch(n, n_slices, k)
+        ws_ptrs = [ws_a.data_ptr(), ws_b.data_ptr()]
     err = fn(
         yg.data_ptr(), w.data_ptr(), conf.data_ptr(), ytyl.data_ptr(),
-        *hot_ptrs, x.data_ptr(), b.data_ptr(), n, d, k, h,
+        *hot_ptrs, *ws_ptrs, x.data_ptr(), b.data_ptr(), n, d, k, h,
+        h_slices, n_slices,
         yg.device.index if yg.device.index is not None else 0,
         torch.cuda.current_stream(yg.device).cuda_stream,
     )
@@ -220,5 +257,6 @@ def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
         msg = lib.qmf_cuda_error_string(err).decode()
         raise RuntimeError(
             f"build_solve launch failed (N={n}, D={d}, k={k}, H={h}, "
-            f"{yg.dtype}): CUDA error {err}: {msg}"
+            f"H slices {h_slices}, D slices {n_slices}, {yg.dtype}): "
+            f"CUDA error {err}: {msg}"
         )

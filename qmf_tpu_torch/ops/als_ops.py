@@ -162,25 +162,28 @@ def _solve_bucket_body(y, yty, col_idx, values, mask, alpha, lam, solver,
     return x, _loss_from_solution(x, b, conf_sum, lam)
 
 
-def _fused_chunk(y_s, ytyl, col_idx, values, mask, alpha, lam, hot=None,
-                 y_hot=None):
-    """One chunk through build_solve.build_solve (qmf_tpu's _class_fused,
-    als_ops.py:377-434): the gather and the weights here, the build, factor
-    and solve in one call. ``y_s`` is the fixed side in the stream dtype.
-    Returns (x (B,k) f32, loss (B,))."""
+def _fused_class(y_s, ytyl, col_idx, values, mask, alpha, lam, chunk_b,
+                 hot=None, y_hot=None):
+    """One class through build_solve.build_solve, a chunk of ``chunk_b``
+    rows per call (qmf_tpu's _class_fused, als_ops.py:377-434): the weights
+    and the loss once per class, the gather per chunk, the build, factor and
+    solve in one call per chunk. ``y_s`` is the fixed side in the stream
+    dtype. Returns (x (B,k) f32, loss (B,))."""
     maskf = mask.to(values.dtype)
     w = alpha * values * maskf
     conf = maskf + w
     conf_sum = conf.sum(dim=1)
-    w_ab = None
     if hot is not None:
-        w_a, w_b, conf_hot = hot
-        conf_sum = conf_sum + conf_hot
-        w_ab = (w_a, w_b)
-    x, b = build_solve.build_solve(
-        _flat_gather(y_s, col_idx), w, conf, ytyl, w_ab,
-        y_hot if hot is not None else None,
-    )
+        conf_sum = conf_sum + hot[2]
+    n, k = col_idx.shape[0], ytyl.shape[0]
+    x = torch.empty((n, k), dtype=torch.float32, device=ytyl.device)
+    b = torch.empty_like(x)
+    for s, e in _chunks(n, chunk_b):
+        x[s:e], b[s:e] = build_solve.build_solve(
+            _flat_gather(y_s, col_idx[s:e]), w[s:e], conf[s:e], ytyl,
+            None if hot is None else (hot[0][s:e], hot[1][s:e]),
+            None if hot is None else y_hot,
+        )
     return x, _loss_from_solution(x, b, conf_sum, lam)
 
 
@@ -192,7 +195,8 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
     branch, als_ops.py:492-503), or with solver="fused" one build+solve call
     per chunk (its "fused" branch, :467-481, gathered per chunk rather than
     per class: rows are independent, and the (chunk_b, D, k) stream stays
-    bounded); then the scatter of the solved rows. ``hot`` =
+    bounded; weights and loss stay per class); then the scatter of the
+    solved rows. ``hot`` =
     (hot_ids, [per-class (w_a, w_b, conf_hot)]) adds the hot/cold split.
     Returns (new factors (n_rows, k), summed un-normalized loss (0-d)).
     """
@@ -215,13 +219,10 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
         for (row_ids, col_idx, values, mask), chunk_b, hot_cls in zip(
             class_arrays, chunk_sizes, hot_classes
         ):
-            for s, e in _chunks(col_idx.shape[0], chunk_b):
-                x, row_loss = _fused_chunk(
-                    y_s, ytyl, col_idx[s:e], values[s:e], mask[s:e], alpha,
-                    lam, _hot_rows(hot_cls, s, e), y_hot,
-                )
-                loss = loss + row_loss.sum()
-                x_out.index_copy_(0, row_ids[s:e], x)
+            x, row_loss = _fused_class(y_s, ytyl, col_idx, values, mask,
+                                       alpha, lam, chunk_b, hot_cls, y_hot)
+            loss = loss + row_loss.sum()
+            x_out.index_copy_(0, row_ids, x)
         return x_out[:n_rows], loss
     if z is not None:
         # the split path's hot GEMMs run on operands upcast once per side

@@ -17,11 +17,15 @@ rounded to the stream dtype as als_ops.hot_tables rounds it.
 On a CUDA tensor :func:`build_solve` launches ``csrc/build_solve.cu`` (see
 qmf_tpu_torch/kernels.py) and raises if it cannot; on a CPU tensor it runs
 :func:`build_solve_reference`. Unlike the TPU wrapper nothing is padded, and
-the kernel takes no Z: it rebuilds Z's entries from y_hot with the same
-rounding, so the caller hands it y_hot alone.
+the kernel takes no Z: it builds Z's tiles from y_hot with the same
+rounding, so the caller hands it y_hot alone. A chunk with too few rows to
+fill the card has each row's stream split over :func:`split_count` blocks,
+and its hot head's GEMM over :func:`hot_split_count` slices of H.
 
-``launches`` and ``launches_hot`` count kernel launches of the two variants
-(CPU calls and empty chunks do not count).
+``launches`` and ``launches_hot`` count calls of the two variants that
+launched the kernel, one per call however many CUDA kernels it issues (the
+hot head's GEMM, the build, the split's reduce + solve). CPU calls and
+empty chunks do not count.
 """
 
 from __future__ import annotations
@@ -35,6 +39,43 @@ launches = 0  # the variant without the hot head
 launches_hot = 0  # the variant with it
 
 _STREAM_DTYPES = (torch.bfloat16, torch.float32)
+# Splits: aim for this many blocks per SM; give each block of the D split
+# at least this many stream rows (four of the kernel's 32-row stages) and
+# each block of the hot head's H split at least this many hot columns.
+SPLIT_BLOCKS_PER_SM, SPLIT_MIN_ROWS, HOT_SPLIT_MIN_COLS = 4, 128, 64
+
+
+def _split(blocks: int, depth: int, min_depth: int, sms: int) -> int:
+    target = SPLIT_BLOCKS_PER_SM * sms
+    if blocks >= target or depth <= min_depth:
+        return 1
+    return max(1, min(-(-target // blocks), depth // min_depth))
+
+
+def split_count(n: int, d: int, sms: int) -> int:
+    """Blocks over which the kernel splits each row's D stream rows.
+
+    1 when the chunk's n rows fill ``SPLIT_BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs, or when the stream is too short to split; otherwise enough
+    slices of at least ``SPLIT_MIN_ROWS`` rows that n x S reaches that
+    target. Never more than ``d``.
+    """
+    return _split(n, d, SPLIT_MIN_ROWS, sms)
+
+
+def hot_split_count(n: int, h: int, k: int, sms: int,
+                    limits: kernels.BuildSolveLimits) -> int:
+    """Slices into which the hot head's GEMM splits H: by the rule of
+    :func:`split_count` over its units of ``limits.hot_tile_rows`` rows x
+    ``limits.hot_tile_cols`` columns (the k (k+1)/2 entries of A's lower
+    triangle and the k of b are its columns), and at least enough that no
+    slice is wider than ``limits.hot_max_slice``.
+    """
+    cols = (-(-(k * (k + 1) // 2) // limits.hot_tile_cols)
+            + -(-k // limits.hot_tile_cols))
+    units = -(-n // limits.hot_tile_rows) * cols
+    return max(-(-h // limits.hot_max_slice),
+               _split(units, h, HOT_SPLIT_MIN_COLS, sms))
 
 
 def rank1_table(y_hot: torch.Tensor) -> torch.Tensor:
@@ -112,22 +153,26 @@ def build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
         return build_solve_reference(yg, w, conf, ytyl, hot, y_hot)
     if yg.device.type != "cuda":
         raise ValueError(f"build_solve runs on cpu or cuda, not {yg.device}")
-    n, _, k = yg.shape
+    n, d, k = yg.shape
     x = torch.empty((n, k), dtype=torch.float32, device=yg.device)
     b = torch.empty_like(x)
     if n == 0:
         return x, b
-    max_k = kernels.build_solve_max_k()
-    if k > max_k:
+    limits = kernels.build_solve_limits(yg.dtype)
+    if k > limits.max_k:
         raise ValueError(
             f"k={k} exceeds the build_solve kernel's shared-memory limit: "
-            f"k <= {max_k} ({kernels.MAX_SMEM_BYTES} bytes per block)"
+            f"k <= {limits.max_k} ({kernels.MAX_SMEM_BYTES} bytes per block)"
         )
+    sms = kernels.sm_count(yg.device)
     w_a, w_b = (None, None) if hot is None else (t.contiguous() for t in hot)
     kernels.launch_build_solve(
         yg.contiguous(), w.contiguous(), conf.contiguous(),
         ytyl.contiguous(), w_a, w_b,
         None if y_hot is None else y_hot.contiguous(), x, b,
+        hot_split_count(n, 0 if y_hot is None else y_hot.shape[0], k, sms,
+                        limits),
+        split_count(n, d, sms),
     )
     if hot is not None:
         launches_hot += 1

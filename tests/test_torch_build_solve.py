@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from qmf_tpu.ops import als_ops as jax_als
 from qmf_tpu.ops import pallas_solve
+from qmf_tpu_torch import kernels
 from qmf_tpu_torch.ops import als_ops, build_solve, spd_solve
 
 torch.set_num_threads(1)
@@ -50,7 +51,7 @@ def _weights(vals, mask):
 
 
 def _port_args(y, col, vals, mask, w_a, w_b, stream, hot):
-    """build_solve's arguments, formed as als_ops._fused_chunk forms them."""
+    """build_solve's arguments, formed as als_ops._fused_class forms them."""
     w, conf = _weights(vals, mask)
     yt = torch.from_numpy(y)
     ytyl = yt.T @ yt + LAM * torch.eye(y.shape[1])
@@ -255,3 +256,57 @@ def test_rejects_bad_inputs(bad, match):
                 for t in args]
     with pytest.raises(ValueError, match=match):
         build_solve.build_solve(*args)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n,d", [(528, 131072), (8192, 16), (4096, 4096),
+                                 (31744, 64)])
+def test_split_count_is_one_where_rows_fill_the_card(n, d):
+    """4 blocks on each of 132 SMs: 528 rows or more run one block each."""
+    assert build_solve.split_count(n, d, H100_SMS) == 1
+
+
+@pytest.mark.parametrize("n,d", [(8, 131072), (16, 98304), (48, 65536),
+                                 (88, 32768), (296, 8192), (1, 4096)])
+def test_split_count_splits_the_wide_chunks(n, d):
+    """The ml20m item side's wide chunks (packing.py caps a chunk of width
+    D at 8192 * 8 / D rows) reach the target of 528 blocks, or as many as
+    slices of 128 stream rows allow."""
+    s = build_solve.split_count(n, d, H100_SMS)
+    assert s > 1
+    assert n * s >= 4 * H100_SMS or s == d // build_solve.SPLIT_MIN_ROWS
+    assert d // s >= build_solve.SPLIT_MIN_ROWS
+
+
+def test_split_counts_never_exceed_the_reduction_depth():
+    for sms in (1, 8, 132):
+        for n in (1, 2, 7, 8, 100, 527, 528, 10**5):
+            for d in (0, 1, 8, 127, 128, 129, 320, 4097, 131072):
+                s = build_solve.split_count(n, d, sms)
+                assert 1 <= s <= max(d, 1)
+                assert s == 1 or n < 4 * sms
+            for h in (0, 1, 64, 65, 300, 1024, 1025, 4096):
+                for lim in (BF16_LIMITS, F32_LIMITS):
+                    sh = build_solve.hot_split_count(n, h, 64, sms, lim)
+                    assert 1 <= sh <= max(h, 1)
+                    assert -(-h // sh) <= lim.hot_max_slice
+
+
+# csrc/build_solve.cu's limits (qmf_build_solve_limits), which the card
+# tests read from the library: max k, widest H slice, hot tile rows, columns
+BF16_LIMITS = kernels.BuildSolveLimits(229, 1024, 128, 64)
+F32_LIMITS = kernels.BuildSolveLimits(209, 512, 128, 64)
+
+
+@pytest.mark.parametrize("n,k,want", [(8, 64, 16), (4096, 64, 1),
+                                      (512, 64, 4), (1, 8, 16)])
+def test_hot_split_count_at_h1024(n, k, want):
+    """H = 1024 split so that (row tiles x column tiles x H slices) reaches
+    528 blocks, each with at least 64 hot columns; an f32 stream's Z tile
+    holds 512 hot columns, so it takes at least two slices."""
+    assert build_solve.hot_split_count(n, 1024, k, H100_SMS,
+                                       BF16_LIMITS) == want
+    assert build_solve.hot_split_count(n, 1024, k, H100_SMS,
+                                       F32_LIMITS) == max(want, 2)

@@ -7,6 +7,8 @@ machine without it run it without the repo's conftest::
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -89,12 +91,23 @@ def _assert_rowwise_close(got, want, tol):
     assert float(((got - want).abs() / scale).max()) <= tol
 
 
-@pytest.mark.parametrize("n", [1, 13, 300])
-@pytest.mark.parametrize("d", [8, 320, 512])
-@pytest.mark.parametrize("k", [8, 30, 64])
-@pytest.mark.parametrize("h", [0, 300])
+# (n, d, k, h): the grid of every n x d x k x h; then the D split (few
+# rows, wide D: S > 1); then widths no split or 16 divides, split (5 rows)
+# and not (700 rows, one block per row), with k = 128 (eight 16-row MMA
+# tiles, several 64-wide hot tiles) and H = 1024.
+_BS_CASES = [
+    *itertools.product((1, 13, 300), (8, 320, 512), (8, 30, 64), (0, 300)),
+    *((*nd, k, h) for nd, k, h in itertools.product(
+        ((1, 4096), (8, 32768)), (30, 64), (0, 300))),
+    *((*nd, k, h) for nd, k, h in itertools.product(
+        ((5, 4097), (700, 320), (700, 448)), (8, 30, 64, 128),
+        (0, 300, 1024))),
+]
+
+
+@pytest.mark.parametrize("n,d,k,h", _BS_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_build_solve_matches_plain(cuda, dtype, h, k, d, n):
+def test_build_solve_matches_plain(cuda, dtype, n, d, k, h):
     args = _bs_args(n, d, k, h, dtype, cuda, seed=k + d + n)
     before = (build_solve.launches, build_solve.launches_hot)
     x, b = build_solve.build_solve(*args)
@@ -104,6 +117,21 @@ def test_build_solve_matches_plain(cuda, dtype, h, k, d, n):
     x_plain, b_plain = build_solve.build_solve_reference(*args)
     _assert_rowwise_close(b, b_plain, 2e-4)
     _assert_rowwise_close(x, x_plain, 2e-4)
+
+
+@pytest.mark.parametrize("h", [0, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_build_solve_split_is_deterministic(cuda, dtype, h):
+    """A split chunk (partials reduced in slice order, no atomics) gives
+    the same bits on every call."""
+    n, d = 8, 32768
+    assert build_solve.split_count(n, d, kernels.sm_count(cuda)) > 1
+    args = _bs_args(n, d, 64, h, dtype, cuda, seed=3)
+    first = build_solve.build_solve(*args)
+    second = build_solve.build_solve(*args)
+    torch.cuda.synchronize()
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
 
 
 def test_build_solve_non_spd_rows_are_nan(cuda):
@@ -117,8 +145,29 @@ def test_build_solve_non_spd_rows_are_nan(cuda):
         i in (2, 5) for i in range(8)]
 
 
-def test_build_solve_rejects_k_over_limit(cuda):
-    k = kernels.build_solve_max_k() + 1
-    args = _bs_args(1, 8, k, 0, torch.float32, cuda)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_build_solve_rejects_k_over_limit(cuda, dtype):
+    k = kernels.build_solve_max_k(dtype) + 1
+    args = _bs_args(1, 8, k, 0, dtype, cuda)
     with pytest.raises(ValueError, match="shared-memory limit"):
         build_solve.build_solve(*args)
+
+
+@pytest.mark.parametrize("h", [0, 300])
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, (229, 1024, 128, 64)), (torch.float32, (209, 512, 128, 64))])
+def test_build_solve_runs_at_its_limits(cuda, dtype, want, h):
+    """The library reports the limits tests/test_torch_build_solve.py
+    assumes, and its launch accepts them: k at the largest it takes, with
+    the stream split, and a hot head one column wider than a slice."""
+    limits = kernels.build_solve_limits(dtype)
+    assert tuple(limits) == want
+    x, b = build_solve.build_solve(
+        *_bs_args(2, 4096, limits.max_k, h, dtype, cuda))
+    wide = limits.hot_max_slice + 1
+    x_hot, _ = build_solve.build_solve(*_bs_args(3, 40, 16, wide, dtype, cuda))
+    torch.cuda.synchronize()
+    assert build_solve.hot_split_count(3, wide, 16, kernels.sm_count(cuda),
+                                       limits) >= 2
+    for t in (x, b, x_hot):
+        assert torch.isfinite(t).all()

@@ -225,3 +225,19 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 14
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py names the port's modules, never the JAX package's:
+    the reference's jax-free parts reach it through qmf_tpu_torch."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    assert "qmf_tpu_torch.data" in names
+    bad = [m for m in names if m.split(".")[0] in ("qmf_tpu", "jax")]
+    assert not bad, bad
