@@ -9,14 +9,19 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
 0. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 1. build the CUDA kernels from csrc/ (nvcc, sm_90a);
 2. the kernel against its plain PyTorch version, f32 and f64, both layouts,
-   k in {8, 16, 30, 64, 128} x B in {1, 13, 4097}; non-SPD rows give NaN;
-   then both timed at the ml20m user side's shape (B = 138,493, k = 64);
+   k in {1, 8, 16, 30, 31, 33, 64, 65, 128, the library's max k} x B in
+   {1, 13, systems per block + 1, 4097 (k <= 128)}; non-SPD rows give NaN,
+   beside SPD rows of their block; then the kernel, its plain version and
+   torch.linalg.solve timed at the ml20m user side's shape (B = 138,493,
+   k = 64), with the bound and the systems per block;
 3. the CLI main path at ml100k scale with CLI defaults (k = 30): launch
    count, factor files, test AUC, and the factors against a plain-cholesky
    run on the card;
 4. the WALSEngine at ml20m scale and k = 64, 3 epochs: epoch times and
-   losses, AUC, launch count, peak memory; then the kernel against the
-   plain version on that run's largest width class;
+   losses, AUC, launch count (and launches per epoch), peak memory; then
+   the kernel against the plain version on that run's largest width class;
+   then (4p) the split path's user half-epoch under torch.profiler: device
+   ms, chol_solve_kernel's time, the largest kernels by device time;
 5. the build+solve kernel against its plain version, bf16 and f32 streams,
    without and with the hot head, k in {8, 30, 64} x D in {8, 320, 512} x
    N in {1, 13, 300}, plus wide streams split over blocks, (N, D) in
@@ -31,7 +36,9 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    then each item class of the fused+hot path, and the user and item
    half-epochs of the split, fused and fused+hot paths, timed in turns.
 
-Then a JSON line describing each kernel, and as the last line
+Then a JSON line describing each kernel (times, launches, errors, and the
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the peak rate of their type), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises, and the exit code is
 not 0. There is no CPU path: without a CUDA device it fails at phase 0.
 """
@@ -60,6 +67,43 @@ BS_KS, BS_DS, BS_NS, BS_H, HOT_WIDTH = (8, 30, 64), (8, 320, 512), \
     (1, 13, 300), 300, 1024
 BS_WIDE = ((1, 4096), (8, 32768))
 ALPHA, LAM = 40.0, 0.05  # WALSConfig's defaults
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bytes/s, fp32 FLOP/s
+# outside the tensor cores, dense bf16 FLOP/s on them.
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+
+
+def _bound(nbytes: float, ops_s: float) -> tuple[float, str]:
+    """(least ms, what bounds it) for ``nbytes`` moved and ``ops_s``
+    seconds of arithmetic at peak."""
+    bytes_s = nbytes / HBM_BPS
+    return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else \
+        "operations"
+
+
+def _chol_bound(bsz: int, k: int, item: int) -> tuple[float, str]:
+    """chol_solve's bound: read the lower triangle and b, write x; k^3/3
+    for the factor and 2 k^2 for the substitutions, on the CUDA cores."""
+    nbytes = bsz * (k * (k + 1) // 2 + 2 * k) * item
+    ops = bsz * (k ** 3 / 3 + 2 * k * k)
+    return _bound(nbytes, ops / FP32_FLOPS)
+
+
+def _bs_bound(args) -> tuple[float, str]:
+    """build_solve's bound on its arguments: read every input once, write x
+    and b; the stream's and the hot head's updates of A's lower triangle
+    and b at the stream type's peak, the solve at fp32's."""
+    import torch
+
+    yg, w, conf, ytyl, hot, y_hot = args
+    n, d, k = yg.shape
+    upd = k * (k + 1) // 2 + k
+    ins = [yg, w, conf, ytyl] + ([*hot, y_hot] if hot is not None else [])
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + 2 * n * k * 4
+    h = 0 if y_hot is None else y_hot.shape[0]
+    rate = BF16_FLOPS if yg.dtype == torch.bfloat16 else FP32_FLOPS
+    ops_s = (2 * n * (d + h) * upd / rate
+             + n * (k ** 3 / 3 + 2 * k * k) / FP32_FLOPS)
+    return _bound(nbytes, ops_s)
 
 
 def _normwise_err(got, want) -> tuple[float, float]:
@@ -160,20 +204,30 @@ def _median_ms(fns: dict, reps: int = 5) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def kernel_check(ks=(8, 16, 30, 64, 128), batches=(1, 13, 4097)) -> dict:
-    """Phase 2: kernel vs plain on the card, then both timed."""
+def kernel_check(ks=(1, 8, 16, 30, 31, 33, 64, 65, 128),
+                 batches=(1, 13, 4097)) -> dict:
+    """Phase 2: kernel vs plain on the card, then both and the library's
+    batched solve timed. ``batches`` above 128 run only up to k = 128; each
+    k also runs one block's systems + 1, and each dtype its largest k."""
     import torch
 
+    from qmf_tpu_torch import kernels
     from qmf_tpu_torch.ops import spd_solve
 
     t0 = time.time()
     dev = torch.device("cuda")
+    dtypes = (torch.float32, torch.float64)
+    max_k = {dt: kernels.chol_solve_max_k(dt) for dt in dtypes}
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     cases = 0
-    for k in ks:
-        for bsz in batches:
+    for k in sorted(set(ks) | set(max_k.values())):
+        k_dtypes = [dt for dt in dtypes if k <= max_k[dt]]
+        k_batches = {bsz for bsz in batches if bsz <= 128 or k <= 128}
+        k_batches |= {kernels.chol_solve_limits(dt, k).systems_per_block + 1
+                      for dt in k_dtypes}
+        for bsz in sorted(k_batches):
             a64, b64 = _spd_np(bsz, k, seed=1000 * k + bsz)
-            for dtype in (torch.float32, torch.float64):
+            for dtype in k_dtypes:
                 a = torch.as_tensor(a64, dtype=dtype, device=dev)
                 b = torch.as_tensor(b64, dtype=dtype, device=dev)
                 want = spd_solve.solve_spd_reference(a, b)
@@ -188,16 +242,20 @@ def kernel_check(ks=(8, 16, 30, 64, 128), batches=(1, 13, 4097)) -> dict:
                             f"error {scaled} > {tol} (max abs {err})")
                     worst[dtype] = max(worst[dtype], err)
                     cases += 1
-    # non-SPD rows: non-finite in both versions, the others untouched
-    a64, b64 = _spd_np(8, 30, seed=7)
-    a64[[2, 5]] *= -1.0
+    # non-SPD rows: non-finite in both versions, the others of their
+    # block untouched
+    per_block = kernels.chol_solve_limits(torch.float32, 30).systems_per_block
+    n_nan = per_block + 8
+    nan_rows = (2, 5, per_block + 6)
+    a64, b64 = _spd_np(n_nan, 30, seed=7)
+    a64[list(nan_rows)] *= -1.0
     for dtype in (torch.float32, torch.float64):
         a = torch.as_tensor(a64, dtype=dtype, device=dev)
         b = torch.as_tensor(b64, dtype=dtype, device=dev)
         for x in (spd_solve.solve_spd(a, b),
                   spd_solve.solve_spd_reference(a, b)):
             bad = ~torch.isfinite(x).all(dim=1)
-            if bad.tolist() != [i in (2, 5) for i in range(8)]:
+            if bad.tolist() != [i in nan_rows for i in range(n_nan)]:
                 raise AssertionError(f"non-SPD rows: {bad.tolist()}")
 
     # timing at the ml20m user side's shape, on well-conditioned systems
@@ -210,18 +268,28 @@ def kernel_check(ks=(8, 16, 30, 64, 128), batches=(1, 13, 4097)) -> dict:
     ms = _time_ms(lambda: spd_solve.solve_spd(a, b))
     t_ms = _time_ms(lambda: spd_solve.solve_spd(a, b, layout="t"))
     plain_ms = _time_ms(lambda: spd_solve.solve_spd_reference(a, b))
+    library_ms = _time_ms(lambda: torch.linalg.solve(a, b))
     big_err, scaled = _normwise_err(spd_solve.solve_spd(a, b),
                                     spd_solve.solve_spd_reference(a, b))
     if not scaled <= F32_TOL:
         raise AssertionError(f"B={ML20M_USERS} k=64 f32: err {big_err}")
     del a, b
     torch.cuda.empty_cache()
+    bound_ms, bound_by = _chol_bound(ML20M_USERS, K_MAIN, 4)
+    limits = kernels.chol_solve_limits(torch.float32, K_MAIN)
     _line("2 kernel", t0, cases=cases,
           max_abs_err_f32=worst[torch.float32],
           max_abs_err_f64=worst[torch.float64],
+          max_k_f32=max_k[torch.float32], max_k_f64=max_k[torch.float64],
           timed_shape=f"({ML20M_USERS},{K_MAIN},{K_MAIN})f32",
-          kernel_ms=ms, kernel_t_layout_ms=t_ms, plain_ms=plain_ms, timed_max_abs_err=big_err)
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err_f32": worst[torch.float32]}
+          systems_per_block=limits.systems_per_block,
+          system_bytes=limits.system_bytes,
+          kernel_ms=ms, kernel_t_layout_ms=t_ms, plain_ms=plain_ms,
+          linalg_solve_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+          timed_max_abs_err=big_err)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err_f32": worst[torch.float32]}
 
 
 def _split(users, items, values, seed=SEED):
@@ -404,7 +472,8 @@ def model_scale(data, t_data: float, device: str = "cuda",
           init_s=round(t_init, 3),
           epoch_s=[round(dt, 4) for _, _, dt in epochs],
           losses=[f"{x:.10g}" for x in losses], test_auc=auc,
-          classes=n_classes, launches=launches, peak_bytes=peak,
+          classes=n_classes, launches=launches,
+          launches_per_epoch=launches / nepochs, peak_bytes=peak,
           class_rows=a.shape[0], class_max_abs_err=err, class_normwise_err=scaled,
           class_max_abs_x=scale)
     return {"launches": launches, "max_abs_err": err, "engine": engine,
@@ -500,7 +569,7 @@ def _biggest_user_class(engine) -> int:
 def _time_class(engine, i: int, side: str) -> tuple:
     """Kernel, plain and the split path's build + chol_solve on class i of
     one side, against the trained factors of the other: (shape, kernel
-    max abs error, {name: median ms})."""
+    max abs error, {name: median ms}, the kernel's (bound ms, bound by))."""
     from qmf_tpu_torch.ops import als_ops, build_solve
 
     cfg = engine.config
@@ -518,7 +587,8 @@ def _time_class(engine, i: int, side: str) -> tuple:
             cfg.regularization_lambda, "kernel", cfg.matmul_precision,
             chunks[i]),
     })
-    return f"({col.shape[0]},{col.shape[1]},{y.shape[1]})bf16", err, ms
+    return (f"({col.shape[0]},{col.shape[1]},{y.shape[1]})bf16", err, ms,
+            _bs_bound(args))
 
 
 def fused_kernel_check(split_engine, device: str = "cuda") -> dict:
@@ -554,19 +624,22 @@ def fused_kernel_check(split_engine, device: str = "cuda") -> dict:
             raise AssertionError(f"non-SPD rows: {bad.tolist()}")
 
     engine = split_engine
-    user_shape, err, ms = _time_class(engine, _biggest_user_class(engine),
-                                      "user")
+    user_shape, err, ms, bound = _time_class(
+        engine, _biggest_user_class(engine), "user")
     widest = max(range(len(engine._item_classes)),
                  key=lambda i: engine._item_classes[i][1].shape[1])
-    item_shape, item_err, item_ms = _time_class(engine, widest, "item")
+    item_shape, item_err, item_ms, item_bound = _time_class(
+        engine, widest, "item")
     _line("5 build_solve", t0, cases=len(grid), max_abs_err=worst,
           timed_class=user_shape, class_max_abs_err=err,
-          kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+          kernel_ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound[0],
+          bound_by=bound[1], item_bound_ms=item_bound[0],
           split_build_chol_ms=ms["split"], widest_item_class=item_shape,
           item_max_abs_err=item_err, item_kernel_ms=item_ms["kernel"],
           item_plain_ms=item_ms["plain"],
           item_split_build_chol_ms=item_ms["split"])
-    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def _n_chunks(dataset, cfg) -> int:
@@ -729,6 +802,7 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
         "kernel": lambda: build_solve.build_solve(*args),
         "plain": lambda: build_solve.build_solve_reference(*args),
     })
+    bound_ms, bound_by = _bs_bound(args)
     item_classes = _item_class_ms(engine)
     half = _half_epoch_ms({"split": (split_engine, "kernel"),
                            "fused": (split_engine, "fused"),
@@ -744,13 +818,59 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
           timed_class=f"({args[0].shape[0]},{args[0].shape[1]},{K_MAIN})"
                       f"bf16+H{args[5].shape[0]}",
           class_max_abs_err=err, kernel_ms=ms["kernel"],
-          plain_ms=ms["plain"],
+          plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
           item_class_ms="[" + ",".join(
               f"({r},{w},{t:.4f})" for r, w, t in item_classes) + "]",
           **{f"half_epoch_ms_{name}": round(t, 4)
              for name, t in half.items()})
     return {"launches": counts[1], "cli_launches": cli_launches,
-            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
+            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def profile_split_user(engine) -> None:
+    """Phase 4p: the split path's user half-epoch (as phase 6 times it)
+    once under torch.profiler, after one warm-up: device ms, and the
+    largest kernels and copies by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qmf_tpu_torch.ops import als_ops
+
+    t0 = time.time()
+    cfg = engine.config
+    classes, chunks, hot, y, n = _side(engine, "user")
+
+    def half_epoch():
+        als_ops._solve_side(y, classes, chunks, n, cfg.confidence_weight,
+                            cfg.regularization_lambda, "kernel",
+                            cfg.matmul_precision, hot)
+        torch.cuda.synchronize()
+
+    half_epoch()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        half_epoch()
+
+    def self_ms(e):
+        return e.self_device_time_total / 1e3
+
+    # device-side events only (kernels, copies): an operator's self device
+    # time repeats its kernels'
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and self_ms(e) > 0]
+    events.sort(key=self_ms, reverse=True)
+    chol = [e for e in events if "chol_solve_kernel" in e.key]
+    if not chol:
+        raise AssertionError("the profile shows no chol_solve_kernel")
+    top = ", ".join(f"{e.key[:60]!r}:{self_ms(e):.3f}ms/{e.count}"
+                    for e in events[:8])
+    _line("4p profile", t0, half_epoch="split_user",
+          device_ms=round(sum(self_ms(e) for e in events), 3),
+          chol_solve_kernel_ms=round(sum(self_ms(e) for e in chol), 3),
+          chol_solve_kernel_calls=sum(e.count for e in chol),
+          top=f"[{top}]")
 
 
 def main() -> int:
@@ -763,6 +883,7 @@ def main() -> int:
     data, t_data = ml20m_data()
     main_path = model_scale(data, t_data)
     split_engine = main_path.pop("engine")
+    profile_split_user(split_engine)
     fused_timing = fused_kernel_check(split_engine)
     torch.cuda.empty_cache()
     fused = fused_path(data, main_path, split_engine)
@@ -776,6 +897,9 @@ def main() -> int:
         "max_abs_err": main_path["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": timing["library_ms"],
     }, {
         "name": "build_solve",
         "route": "cuda",
@@ -785,6 +909,9 @@ def main() -> int:
         "max_abs_err": fused_timing["max_abs_err"],
         "ms": fused_timing["ms"],
         "plain_ms": fused_timing["plain_ms"],
+        "bound_ms": fused_timing["bound_ms"],
+        "bound_by": fused_timing["bound_by"],
+        "library_ms": None,
     }, {
         "name": "build_solve_hot",
         "route": "cuda",
@@ -794,6 +921,9 @@ def main() -> int:
         "max_abs_err": fused["max_abs_err"],
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"],
+        "bound_by": fused["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

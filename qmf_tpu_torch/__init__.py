@@ -7,8 +7,10 @@ runs through a hand-written CUDA kernel for Hopper (``csrc/chol_solve.cu``),
 or, with ``solver="fused"``, the normal-equation build and the solve run
 together in ``csrc/build_solve.cu``, optionally with the hot/cold split;
 ``kernels.py`` builds both at first use. On CPU tensors their plain PyTorch
-versions run instead. Nothing here imports jax: the host layer that is
-jax-free in ``qmf_tpu`` (config, data, flags, logging, checkpoint) is shared.
+versions run instead. Nothing here imports jax or ``qmf_tpu``: the host
+layer that is jax-free in ``qmf_tpu`` (config, data, flags, logging,
+checkpoint) is copied into ``config.py``, ``data/`` and ``utils/``, with the
+same file formats.
 
 Not ported yet (ROADMAP.md): BPR, top-N serving, multi-device training, the
 control plane and on-device packing.

@@ -16,14 +16,13 @@ from __future__ import annotations
 
 import sys
 
-from qmf_tpu.config import MetricsConfig
-from qmf_tpu.data import read_dataset
-from qmf_tpu.utils import split
-from qmf_tpu.utils.flags import Flags
-from qmf_tpu.utils.logging import log
-from qmf_tpu_torch.config import WALSConfig
+from qmf_tpu_torch.config import MetricsConfig, WALSConfig
+from qmf_tpu_torch.data import read_dataset
 from qmf_tpu_torch.metrics import MetricsEngine
 from qmf_tpu_torch.models import WALSEngine
+from qmf_tpu_torch.utils import split
+from qmf_tpu_torch.utils.flags import Flags
+from qmf_tpu_torch.utils.logging import log
 
 
 def make_flags() -> Flags:

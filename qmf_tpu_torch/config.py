@@ -3,7 +3,8 @@
 ``WALSConfig`` keeps the reference field names and defaults of
 ``qmf_tpu.config.WALSConfig`` (reference qmf/wals/WALSEngine.h:35-42 and the
 gflags defaults in qmf/wals.cpp:26-31), plus the knobs the port implements.
-``MetricsConfig`` is shared with ``qmf_tpu`` unchanged.
+``MetricsConfig`` is a copy of ``qmf_tpu.config.MetricsConfig`` (same fields
+and defaults).
 
 Every enum is validated when the config is built, so a typo fails before any
 data is read. ``qmf_tpu`` knobs that the port does not implement yet
@@ -14,8 +15,6 @@ ROADMAP.md.
 from __future__ import annotations
 
 import dataclasses
-
-from qmf_tpu.config import MetricsConfig  # noqa: F401  (re-exported)
 
 DTYPES = ("float32", "float64")
 SOLVERS = ("auto", "kernel", "fused", "cholesky", "lu")
@@ -108,3 +107,12 @@ class WALSConfig:
             raise ValueError(
                 f"WALS hot_width must be 'auto' or an int >= 0, got {hw!r}"
             )
+
+
+@dataclasses.dataclass
+class MetricsConfig:
+    """Evaluation configuration (reference qmf/metrics/MetricsEngine.h:29-33)."""
+
+    num_test_users: int = 0
+    always_compute: bool = False
+    seed: int = 42

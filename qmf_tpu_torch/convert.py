@@ -10,7 +10,8 @@ initialized from the same dataset::
     engine.load_factors(u, v)
 
 A qmf_tpu checkpoint directory needs no conversion: both engines write and
-read it through qmf_tpu.utils.checkpoint (``WALSEngine.enable_checkpointing``).
+read one format (qmf_tpu_torch/utils/checkpoint.py is a copy of
+qmf_tpu/utils/checkpoint.py; ``WALSEngine.enable_checkpointing``).
 """
 
 from __future__ import annotations

@@ -35,7 +35,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Opt-in shared memory per block on sm_90 (csrc/chol_core.cuh kMaxSmemBytes).
+# Opt-in shared memory per block on sm_90 (csrc/chol_core.cuh kMaxSmemBytes),
+# named in the kernels' errors.
 MAX_SMEM_BYTES = 232448
 
 _lib = None  # the loaded library, once per process
@@ -138,20 +139,43 @@ def load() -> ctypes.CDLL:
             fn.restype = ci
         lib.qmf_build_solve_limits.argtypes = [ci, ctypes.POINTER(ci)]
         lib.qmf_build_solve_limits.restype = None
+        lib.qmf_chol_solve_limits.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.qmf_chol_solve_limits.restype = ci
         lib.qmf_cuda_error_string.argtypes = [ci]
         lib.qmf_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+class CholSolveLimits(NamedTuple):
+    """What csrc/chol_solve.cu takes for one dtype at one k: the largest k
+    (one system's triangle in one block's shared memory), and at this k the
+    systems each block holds (from shared memory and the kernel's
+    registers) and one system's shared bytes (0 where k is above the
+    largest)."""
+
+    max_k: int
+    systems_per_block: int
+    system_bytes: int
+
+
 @functools.lru_cache(maxsize=None)
+def chol_solve_limits(dtype: torch.dtype, k: int = 1) -> CholSolveLimits:
+    """The factor+solve kernel's limits for ``dtype`` at ``k``, as the
+    library reports them."""
+    lib = load()
+    out = (ctypes.c_int * len(CholSolveLimits._fields))()
+    err = lib.qmf_chol_solve_limits(int(dtype == torch.float64), k, out)
+    if err != 0:
+        raise RuntimeError(
+            f"chol_solve limits (k={k}, {dtype}): CUDA error {err}: "
+            f"{lib.qmf_cuda_error_string(err).decode()}")
+    return CholSolveLimits(*out)
+
+
 def chol_solve_max_k(dtype: torch.dtype) -> int:
-    """Largest k whose system fits one block's shared memory."""
-    item = torch.empty((), dtype=dtype).element_size()
-    k = 1
-    while ((k + 1) * ((k + 1) | 1) + 2 * (k + 1)) * item <= MAX_SMEM_BYTES:
-        k += 1
-    return k
+    """Largest k the factor+solve kernel takes for ``dtype``."""
+    return chol_solve_limits(dtype).max_k
 
 
 def launch_chol_solve(a: torch.Tensor, b: torch.Tensor,

@@ -11,9 +11,9 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
-from qmf_tpu.config import MetricsConfig
+from qmf_tpu_torch.config import MetricsConfig
 from qmf_tpu_torch.metrics.manager import MetricsManager
-from qmf_tpu.utils.logging import log
+from qmf_tpu_torch.utils.logging import log
 
 
 class MetricsEngine:

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qmf_tpu.utils.logging import log
+from qmf_tpu_torch.utils.logging import log
 
 
 def _ranked_positives(labels: torch.Tensor,

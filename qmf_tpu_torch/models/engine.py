@@ -1,5 +1,5 @@
-# Copy of qmf_tpu/models/engine.py (numpy only). The port cannot import the
-# original because qmf_tpu/models/__init__.py imports jax.
+# Copy of qmf_tpu/models/engine.py (numpy only): the port imports nothing of
+# qmf_tpu.
 """Engine base: shared test-evaluation and factor-save helpers.
 
 Mirrors the reference's abstract ``Engine`` (qmf/Engine.h:32-96): the
@@ -15,9 +15,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from qmf_tpu.data.dataset import Dataset
-from qmf_tpu.data.factor_io import FactorData, save_factors
-from qmf_tpu.data.id_index import MISSING_IDX, IdIndex
+from qmf_tpu_torch.data.dataset import Dataset
+from qmf_tpu_torch.data.factor_io import FactorData, save_factors
+from qmf_tpu_torch.data.id_index import MISSING_IDX, IdIndex
 
 
 class Engine:

@@ -25,13 +25,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from qmf_tpu.data.dataset import Dataset
-from qmf_tpu.data.factor_io import FactorData
-from qmf_tpu.data.id_index import IdIndex
-from qmf_tpu.utils import checkpoint as ckpt
-from qmf_tpu.utils.logging import log
 from qmf_tpu_torch import kernels
 from qmf_tpu_torch.config import WALSConfig
+from qmf_tpu_torch.data.dataset import Dataset
+from qmf_tpu_torch.data.factor_io import FactorData
+from qmf_tpu_torch.data.id_index import IdIndex
 from qmf_tpu_torch.models.engine import Engine
 from qmf_tpu_torch.ops import als_ops
 from qmf_tpu_torch.ops import hot as hot_ops
@@ -40,6 +38,8 @@ from qmf_tpu_torch.ops.packing import (
     pack_width_classes,
     packed_stats,
 )
+from qmf_tpu_torch.utils import checkpoint as ckpt
+from qmf_tpu_torch.utils.logging import log
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -264,8 +264,8 @@ class WALSEngine(Engine):
         return float(loss) / self.nusers / self.nitems
 
     def enable_checkpointing(self, directory: str, every: int = 1) -> None:
-        """Per-epoch checkpoint + auto-resume through the shared
-        qmf_tpu.utils.checkpoint (a qmf_tpu checkpoint resumes here too)."""
+        """Per-epoch checkpoint + auto-resume through utils/checkpoint.py,
+        whose format is qmf_tpu's (a qmf_tpu checkpoint resumes here too)."""
         self._ckpt_dir = directory
         self._ckpt_every = max(1, every)
 

@@ -4,8 +4,9 @@ Port of qmf_tpu/ops/pallas_solve.py ``solve_spd`` (:201-238). On a CUDA
 tensor :func:`solve_spd` launches ``csrc/chol_solve.cu`` (see
 qmf_tpu_torch/kernels.py) and raises if it cannot; on a CPU tensor it runs
 :func:`solve_spd_reference`, the plain PyTorch version of the same math.
-Unlike the TPU wrapper, nothing is padded: the kernel takes any k that fits
-one block's shared memory, any batch size, and f32 or f64.
+Unlike the TPU wrapper, nothing is padded: the kernel takes any k whose
+triangle fits one block's shared memory (the library reports the largest),
+any batch size, and f32 or f64.
 
 ``launches`` counts kernel launches (CPU calls and empty batches do not
 count), so a run can show that it went through the kernel.
@@ -70,7 +71,8 @@ def solve_spd(a: torch.Tensor, b: torch.Tensor,
     if k > max_k:
         raise ValueError(
             f"k={k} exceeds the kernel's shared-memory limit for {a.dtype}: "
-            f"k <= {max_k} ({kernels.MAX_SMEM_BYTES} bytes per block)"
+            f"k <= {max_k} (one system's triangle in "
+            f"{kernels.MAX_SMEM_BYTES} bytes per block)"
         )
     if layout == "t":
         a_t = a.permute(1, 2, 0).contiguous()  # (k, k, B)

@@ -1,0 +1,1 @@
+"""Diagnostics of the port's kernels, run on a CUDA card."""

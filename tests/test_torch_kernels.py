@@ -33,17 +33,39 @@ def _spd(bsz, k, dtype, device, seed=0):
     return a.to(device, dtype), b.to(device, dtype)
 
 
-@pytest.mark.parametrize("layout", ["nat", "t"])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.float64, 1e-10)])
-@pytest.mark.parametrize("k", [8, 30, 64, 128])
-def test_kernel_matches_plain(cuda, k, dtype, tol, layout):
-    a, b = _spd(37, k, dtype, cuda, seed=k)
+_TOL = {torch.float32: 2e-4, torch.float64: 1e-10}
+
+
+def _check_chol(a, b, layout, tol):
     before = spd_solve.launches
     got = spd_solve.solve_spd(a, b, layout=layout)
     torch.cuda.synchronize()
     assert spd_solve.launches == before + 1
     want = spd_solve.solve_spd_reference(a, b)
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["nat", "t"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("k", [1, 8, 30, 31, 33, 64, 65, 128, "max"])
+def test_kernel_matches_plain(cuda, k, dtype, tol, layout):
+    if k == "max":
+        k = kernels.chol_solve_max_k(dtype)
+    a, b = _spd(37, k, dtype, cuda, seed=k)
+    _check_chol(a, b, layout, tol)
+
+
+@pytest.mark.parametrize("layout", ["nat", "t"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [30, 64])
+@pytest.mark.parametrize("bsz", [1, "per_block+1", 4097])
+def test_kernel_partial_last_block(cuda, bsz, k, dtype, layout):
+    """Batches that leave the last block's systems partly unused."""
+    per_block = kernels.chol_solve_limits(dtype, k).systems_per_block
+    if bsz == "per_block+1":
+        bsz = per_block + 1
+    a, b = _spd(bsz, k, dtype, cuda, seed=bsz + k)
+    _check_chol(a, b, layout, _TOL[dtype])
 
 
 def test_kernel_non_spd_gives_nan(cuda):
@@ -55,8 +77,46 @@ def test_kernel_non_spd_gives_nan(cuda):
     assert torch.isfinite(x[[0, 1, 2, 4]]).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_non_spd_rows_share_a_block(cuda, dtype):
+    """Non-SPD systems come out NaN, and the SPD systems of their block stay
+    finite and right."""
+    k = 64
+    per_block = kernels.chol_solve_limits(dtype, k).systems_per_block
+    assert per_block >= 2
+    bsz = 2 * per_block + 3
+    a, b = _spd(bsz, k, dtype, cuda, seed=7)
+    bad = [1, per_block, per_block + 2, bsz - 1]
+    a[bad[0]] = -a[bad[0]]
+    a[bad[1], 40, 40] = -5.0  # a negative pivot late in the factor
+    a[bad[2]] = 0.0
+    a[bad[3], 0, 0] = 0.0  # a zero first pivot
+    x = spd_solve.solve_spd(a, b)
+    torch.cuda.synchronize()
+    good = [i for i in range(bsz) if i not in bad]
+    assert (~torch.isfinite(x).all(dim=1)).nonzero().flatten().tolist() == bad
+    torch.testing.assert_close(x[good], spd_solve.solve_spd_reference(
+        a[good], b[good]), rtol=_TOL[dtype], atol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,today", [(torch.float32, 239),
+                                         (torch.float64, 169)])
+def test_chol_solve_limits(cuda, dtype, today):
+    """The library's max k is no lower than the block-per-system kernel's
+    (k (k|1) + 2k elements per block), every k up to it has at least one
+    system per block, and k = 64 holds several."""
+    limits = kernels.chol_solve_limits(dtype)
+    assert limits.max_k >= today
+    for k in range(1, limits.max_k + 1):
+        at_k = kernels.chol_solve_limits(dtype, k)
+        assert at_k.max_k == limits.max_k and at_k.systems_per_block >= 1
+        assert at_k.systems_per_block * at_k.system_bytes <= kernels.MAX_SMEM_BYTES
+    assert kernels.chol_solve_limits(dtype, limits.max_k + 1).systems_per_block == 0
+    assert kernels.chol_solve_limits(dtype, 64).systems_per_block >= 2
+
+
 def test_kernel_rejects_k_over_limit(cuda):
-    k = kernels.chol_solve_max_k(torch.float64) + 1
+    k = kernels.chol_solve_limits(torch.float64).max_k + 1
     a, b = _spd(1, k, torch.float64, cuda)
     with pytest.raises(ValueError, match="shared-memory limit"):
         spd_solve.solve_spd(a, b)

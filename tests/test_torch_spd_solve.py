@@ -88,12 +88,41 @@ def test_rejects_bad_inputs(a_shape, b_shape, dtype, layout):
         )
 
 
-def test_kernel_shared_memory_limits():
-    # k (k|1) + 2k elements must fit the 227 KB a block may opt into
-    for dtype, item in ((torch.float32, 4), (torch.float64, 8)):
-        k = kernels.chol_solve_max_k(dtype)
-        assert (k * (k | 1) + 2 * k) * item <= kernels.MAX_SMEM_BYTES
-        k1 = k + 1
-        assert (k1 * (k1 | 1) + 2 * k1) * item > kernels.MAX_SMEM_BYTES
-    assert kernels.chol_solve_max_k(torch.float32) >= 238
-    assert kernels.chol_solve_max_k(torch.float64) >= 168
+def test_kernel_shared_memory_limits(monkeypatch):
+    """The wrapper takes the limits from the library, which alone knows its
+    layout: chol_solve_limits passes the dtype and k through and returns what
+    qmf_chol_solve_limits writes (the card test holds the real values)."""
+    calls = []
+
+    class FakeLib:
+        @staticmethod
+        def qmf_chol_solve_limits(dtype, k, out):
+            calls.append((dtype, k))
+            out[0], out[1], out[2] = 300 + dtype, 7 + k, 9 * k
+            return 0
+
+    monkeypatch.setattr(kernels, "load", lambda: FakeLib)
+    kernels.chol_solve_limits.cache_clear()
+    try:
+        assert kernels.chol_solve_limits(torch.float32, 64) == (300, 71, 576)
+        assert kernels.chol_solve_max_k(torch.float64) == 301
+        assert kernels.chol_solve_max_k(torch.float32) == 300
+        assert calls == [(0, 64), (1, 1), (0, 1)]
+    finally:
+        kernels.chol_solve_limits.cache_clear()
+
+
+@pytest.mark.parametrize("k", [1, 64, 338])
+def test_chol_phases_cuts_each_phase(k):
+    """The phase-timing tool finds each phase it cuts in the kernel source,
+    and instantiates only k's slot count."""
+    from qmf_tpu_torch.tools import chol_phases
+
+    variants = chol_phases.variant_sources(k)
+    assert set(variants) == {"full", *chol_phases.CUTS}
+    full = variants["full"]
+    assert f"constexpr int kMaxSlots = {-(-k // 32)};" in full
+    for name, (start, _) in chol_phases.CUTS.items():
+        assert start in full and start not in variants[name]
+        assert len(variants[name]) < len(full)
+    assert "cp_async_wait_all();" in variants["load_store"]

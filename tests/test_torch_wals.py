@@ -227,9 +227,52 @@ def test_port_imports_no_jax():
     assert int(proc.stdout.split()[-1]) >= 14
 
 
+def test_port_imports_nothing_of_qmf_tpu():
+    """Importing every module of the port and chip_smoke leaves no qmf_tpu
+    module in sys.modules, and no .py file of the port has an import of
+    qmf_tpu: the port keeps its own copies of the host layer."""
+    import ast
+
+    code = (
+        "import sys, pkgutil, importlib, qmf_tpu_torch\n"
+        "for m in pkgutil.walk_packages(qmf_tpu_torch.__path__, "
+        "'qmf_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'qmf_tpu' "
+        "or m.startswith('qmf_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+    def imports_qmf_tpu(node):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            mods = [node.module or ""]
+        else:
+            return False
+        return any(m == "qmf_tpu" or m.startswith("qmf_tpu.") for m in mods)
+
+    pkg = os.path.join(REPO, "qmf_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")]
+    assert len(files) >= 20
+    bad = []
+    for path in files + [os.path.join(REPO, "chip_smoke.py")]:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        bad += [f"{path}:{n.lineno}" for n in ast.walk(tree)
+                if imports_qmf_tpu(n)]
+    assert not bad, bad
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py names the port's modules, never the JAX package's:
-    the reference's jax-free parts reach it through qmf_tpu_torch."""
+    the data formats reach it through the port's own qmf_tpu_torch.data."""
     import ast
 
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
