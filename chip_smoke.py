@@ -34,17 +34,35 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    of phase 4's, launch counts, peak memory; then the hot variant against
    its plain version on that run's largest user class, checked and timed;
    then each item class of the fused+hot path, and the user and item
-   half-epochs of the split, fused and fused+hot paths, timed in turns.
+   half-epochs of the split, fused and fused+hot paths, timed in turns;
+7. the gather kernels (vec, warp, fill) against their plain version, bit
+   for bit: bf16/f32/f64 x k in {1, 3, 30, 64, 65, 128} x R in {1, 255, 513,
+   2^20} x int32/int64 indices, fill with indices in [-rows-3, rows+3), a
+   table view that starts one element into its storage, a 2-D index; then
+   the two probe entry points (tools.gather_micro's default shapes,
+   tools.vmem_gather_micro at 2^22 rows with and without the L2 window),
+   whose launches are counted; then the three kernels, their plain version
+   and index_select timed in turns at the probes' shapes and on phase 4's
+   largest user class (its col_idx against the item factors in bf16), with
+   both bounds;
+8. serving: the recommend CLI on phase 3's ml100k factor files with
+   --exclude_seen on its training file (every line parses, no listed item
+   was seen, scores descend); then recommend_top_n on phase 4's ml20m
+   factors for all users in batches of 4,096, n = 10, seen items excluded:
+   users/s, peak memory, and 64 sampled users against a numpy float64
+   ranking wherever the score gap to the next item exceeds 1e-4.
 
-Then a JSON line describing each kernel (times, launches, errors, and the
-bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over the peak rate of their type), and as the last line
+Then the run's seconds, a JSON line describing each kernel (times,
+launches, errors, and the bound: the larger of the bytes it must move over
+3.35 TB/s and its operations over the peak rate of their type), and as the
+last line
 ``{"ok": true, "device": {...}}``. Any failure raises, and the exit code is
 not 0. There is no CPU path: without a CUDA device it fails at phase 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -67,6 +85,14 @@ BS_KS, BS_DS, BS_NS, BS_H, HOT_WIDTH = (8, 30, 64), (8, 320, 512), \
     (1, 13, 300), 300, 1024
 BS_WIDE = ((1, 4096), (8, 32768))
 ALPHA, LAM = 40.0, 0.05  # WALSConfig's defaults
+# Phase 7's grid: row widths, index counts, table rows.
+GATHER_KS, GATHER_RS, GATHER_ROWS = (1, 3, 30, 64, 65, 128), \
+    (1, 255, 513, 1 << 20), 997
+# Phase 8: users a batch, list length, users held against numpy float64,
+# the score gap below which two items may swap places in f32, and the bound
+# on |f32 score - f64 score| (k = 64 products of factors below ~1).
+SERVE_BATCH, SERVE_N, SERVE_SAMPLE, SERVE_GAP, SERVE_TOL = \
+    4096, 10, 64, 1e-4, 1e-4
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on them.
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -336,8 +362,11 @@ def _auc_of_files(user_path, item_path, test, device):
         np.asarray(uids), np.asarray(iids))
 
 
-def cli_path(preset: str = "ml100k", device: str = "cuda") -> None:
-    """Phase 3: the CLI with its defaults, through the kernel."""
+def cli_path(preset: str = "ml100k", device: str = "cuda",
+             out_dir: str | None = None) -> dict:
+    """Phase 3: the CLI with its defaults, through the kernel. Returns the
+    paths of the ratings and factor files, which outlive the call where
+    ``out_dir`` is given."""
     import numpy as np
     import torch
 
@@ -351,7 +380,8 @@ def cli_path(preset: str = "ml100k", device: str = "cuda") -> None:
     train, test = _split(*generate(**PRESETS[preset], seed=SEED))
     cfg = WALSConfig()  # the CLI's defaults
     expect = _n_classes(train, cfg) * cfg.nepochs
-    with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as tmp:
+    with (tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_")
+          if out_dir is None else contextlib.nullcontext(out_dir)) as tmp:
         paths = {n: os.path.join(tmp, n) for n in
                  ("train.txt", "test.txt", "user.dat", "item.dat")}
         for name, ds in (("train.txt", train), ("test.txt", test)):
@@ -393,6 +423,7 @@ def cli_path(preset: str = "ml100k", device: str = "cuda") -> None:
     _line("3 cli", t0, preset=preset, ratings=len(train),
           launches=launches, expected=expect, test_auc=auc,
           max_abs_factor_diff_vs_cholesky=diff)
+    return paths
 
 
 def ml20m_data(preset: str = "ml20m"):
@@ -873,21 +904,318 @@ def profile_split_user(engine) -> None:
           top=f"[{top}]")
 
 
+def _gather_cases(device: str = "cuda") -> int:
+    """Every gather kernel against the plain version, bit for bit, over the
+    grid, a table view that starts one element into its storage, and a 2-D
+    index. Returns the number of cases; raises on the first that differs."""
+    import itertools
+
+    import torch
+
+    from qmf_tpu_torch.ops import gather
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+
+    def check(table, idx, kernel, what):
+        fill = kernel == "fill"
+        got = gather.gather_rows(table, idx, "vec" if fill else kernel, fill)
+        torch.cuda.synchronize()
+        want = gather.gather_rows_plain(table, idx, fill)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"gather {kernel} differs from plain: {what}")
+
+    def indices(shape, kernel, dtype):
+        lo, hi = ((-GATHER_ROWS - 3, GATHER_ROWS + 3) if kernel == "fill"
+                  else (0, GATHER_ROWS))
+        return torch.randint(lo, hi, shape, generator=g,
+                             device=device).to(dtype)
+
+    dtypes = (torch.bfloat16, torch.float32, torch.float64)
+    cases = 0
+    for dtype, k in itertools.product(dtypes, GATHER_KS):
+        table = torch.randn(GATHER_ROWS, k, generator=g,
+                            device=device).to(dtype)
+        for n, idx_dtype, kernel in itertools.product(
+                GATHER_RS, (torch.int32, torch.int64),
+                ("vec", "warp", "fill")):
+            check(table, indices((n,), kernel, idx_dtype), kernel,
+                  f"{dtype} k={k} R={n} {idx_dtype}")
+            cases += 1
+    for dtype, kernel in itertools.product(dtypes, ("vec", "warp", "fill")):
+        flat = torch.randn(1 + GATHER_ROWS * 64, generator=g,
+                           device=device).to(dtype)
+        view = flat[1:].view(GATHER_ROWS, 64)
+        width = gather.vector_bytes(64 * view.element_size(),
+                                    view.data_ptr(), 0)
+        if view.data_ptr() % 16 == 0 or width != view.element_size():
+            raise AssertionError(f"the view at {view.data_ptr():#x} does not "
+                                 f"break 16-byte alignment (width {width})")
+        check(view, indices((7, 33), kernel, torch.int64), kernel,
+              f"{dtype} view one element into its storage, 2-D index")
+        cases += 1
+    return cases
+
+
+def _gather_timed(table, idx) -> dict:
+    """The three kernels, their plain versions and index_select on one
+    (table, idx), checked bit for bit and then timed in turns: median ms by
+    name, with the two bounds as ``bound`` and ``every_row``."""
+    import torch
+
+    from qmf_tpu_torch.ops import gather
+    from qmf_tpu_torch.tools import gather_micro
+
+    flat = idx.reshape(-1)
+    fns = {
+        "vec": lambda: gather.gather_rows(table, flat, "vec"),
+        "warp": lambda: gather.gather_rows(table, flat, "warp"),
+        "fill": lambda: gather.gather_rows(table, flat, "vec", True),
+        "plain": lambda: gather.gather_rows_plain(table, flat),
+        "plain_fill": lambda: gather.gather_rows_plain(table, flat, True),
+        "index_select": lambda: torch.index_select(table, 0, flat),
+    }
+    want = fns["index_select"]()
+    for name in ("vec", "warp", "fill"):
+        got = fns[name]()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"gather {name} differs from index_select at table "
+                f"{tuple(table.shape)} {table.dtype}, {flat.numel()} rows")
+    del want, got
+    out = gather_micro.median_ms(fns, table.device)
+    out["bound"], out["every_row"] = gather_micro.gather_bounds(table, flat)
+    return out
+
+
+def gather_check(engine, device: str = "cuda") -> dict:
+    """Phase 7: the gather kernels vs plain, the probes' entry points (the
+    path whose launches are counted), and the kernels timed beside
+    index_select at the probes' shapes and on phase 4's largest user
+    class."""
+    import torch
+
+    from qmf_tpu_torch.ops import gather
+    from qmf_tpu_torch.tools import gather_micro, vmem_gather_micro
+
+    t0 = time.time()
+    dev = torch.device(device)
+    cases = _gather_cases(device)
+
+    # the probes, as their entry points run them; their tables go to stderr
+    for name in gather.launches:
+        gather.launches[name] = 0
+    with contextlib.redirect_stdout(sys.stderr):
+        micro = gather_micro.sweep(device=dev)
+        vmem = vmem_gather_micro.sweep(device=dev)
+    launches = dict(gather.launches)
+    if not all(launches.values()):
+        raise AssertionError(f"a gather kernel was never launched by the "
+                             f"probes: {launches}")
+    if vmem["l2_limit_after"] != 0:
+        raise AssertionError(f"persisting L2 carve-out left at "
+                             f"{vmem['l2_limit_after']} bytes")
+
+    rng, _, yb = gather_micro.tables(dev)
+    n, d = gather_micro.DEFAULT_SPECS[0]
+    at_micro = _gather_timed(yb, gather_micro.indices(rng, n, d, dev)[1])
+    at_vmem = _gather_timed(*vmem_gather_micro.inputs(
+        vmem_gather_micro.DEFAULT_LOG2, dev))
+    # real traffic: phase 4's largest user class against the item factors
+    col = engine._user_classes[_biggest_user_class(engine)][1]
+    at_class = _gather_timed(engine.item_factors.to(torch.bfloat16), col)
+    torch.cuda.empty_cache()
+
+    def ms(d, names):
+        return {f"{n}_ms": round(d[n], 5) for n in names}
+
+    spec_ms = {
+        f"micro_{r['spec'][0]}x{r['spec'][1]}": "[" + ",".join(
+            f"{k}:{v:.5f}" for k, v in r["ms"].items()) + "]"
+        for r in micro}
+    _line("7 gather", t0, cases=cases, max_abs_diff=0.0,
+          probe_launches=launches, **spec_ms,
+          micro_bound_ms=[round(r["bound_ms"], 5) for r in micro],
+          micro_every_row_ms=[round(r["every_row_ms"], 5) for r in micro],
+          vmem_rows=vmem["rows"], vmem="[" + ",".join(
+              f"{k}:{v:.5f}" for k, v in vmem["ms"].items()) + "]",
+          vmem_bound_ms=round(vmem["bound_ms"], 5),
+          vmem_every_row_ms=round(vmem["every_row_ms"], 5),
+          l2_limit_after=vmem["l2_limit_after"],
+          timed_micro=f"({n * d},64)bf16/int32",
+          **{f"micro_{k}": v for k, v in ms(
+              at_micro, ("vec", "warp", "fill", "plain",
+                         "index_select")).items()},
+          timed_vmem=f"({vmem['rows']},64)bf16/int32",
+          **{f"vmem_{k}": v for k, v in ms(
+              at_vmem, ("vec", "fill", "plain_fill",
+                        "index_select")).items()},
+          timed_class=f"({col.shape[0]},{col.shape[1]})int64 from "
+                      f"({engine.nitems},{K_MAIN})bf16",
+          **{f"class_{k}": v for k, v in ms(
+              at_class, ("vec", "warp", "fill", "index_select",
+                         "bound", "every_row")).items()})
+    return {"launches": launches, "micro": at_micro, "vmem": at_vmem}
+
+
+def _parse_recommendations(path: str) -> dict:
+    """user id -> [(item id, score), ...] of a recommend CLI output file;
+    raises on a line that does not parse."""
+    out = {}
+    with open(path) as f:
+        for ln in f:
+            user, _, rest = ln.rstrip("\n").partition("\t")
+            pairs = [p.split(":") for p in rest.split()]
+            out[int(user)] = [(int(i), float(v)) for i, v in pairs]
+    return out
+
+
+def serving(cli_files: dict, data, engine, device: str = "cuda") -> None:
+    """Phase 8: the recommend CLI on phase 3's files, then recommend_top_n
+    over every user of phase 4's ml20m factors, seen items excluded."""
+    import numpy as np
+    import torch
+
+    from qmf_tpu_torch.cli import recommend as cli
+    from qmf_tpu_torch.data import load_factors, read_dataset
+    from qmf_tpu_torch.models.recommend import recommend_top_n
+    from qmf_tpu_torch.ops.bpr_ops import make_pos_set
+
+    t0 = time.time()
+    out_path = os.path.join(os.path.dirname(cli_files["user.dat"]),
+                            "recs.txt")
+    rc = cli.main([
+        f"--user_factors={cli_files['user.dat']}",
+        f"--item_factors={cli_files['item.dat']}",
+        f"--exclude_seen={cli_files['train.txt']}",
+        f"--topn={SERVE_N}", f"--output={out_path}", f"--device={device}",
+    ])
+    if rc != 0:
+        raise AssertionError(f"recommend CLI returned {rc}")
+    recs = _parse_recommendations(out_path)
+    ratings = read_dataset(cli_files["train.txt"])
+    seen_pairs = set(zip(ratings.user_ids.tolist(),
+                         ratings.item_ids.tolist()))
+    file_users = load_factors(cli_files["user.dat"])[0]
+    if sorted(recs) != sorted(int(u) for u in file_users):
+        raise AssertionError("recommend CLI: users in the output differ "
+                             "from the factor file's")
+    for user, pairs in recs.items():
+        if len(pairs) != SERVE_N:
+            raise AssertionError(f"user {user}: {len(pairs)} items listed")
+        if any((user, item) in seen_pairs for item, _ in pairs):
+            raise AssertionError(f"user {user}: a seen item was listed")
+        if any(b > a for (_, a), (_, b) in zip(pairs, pairs[1:])):
+            raise AssertionError(f"user {user}: scores do not descend")
+
+    # ml20m: every user of phase 4's engine, seen = its training ratings
+    train, _ = data
+    rows = engine.user_index.lookup(train.user_ids)
+    cols = engine.item_index.lookup(train.item_ids)
+    uf, itf = engine.user_factors, engine.item_factors
+    t1 = time.time()
+    seen = make_pos_set(rows, cols, engine.nusers, device=device)
+    t_seen = time.time() - t1
+    users = np.arange(engine.nusers, dtype=np.int32)
+
+    def serve_all():
+        parts = [recommend_top_n(uf, itf, users[s:s + SERVE_BATCH],
+                                 n=SERVE_N, seen=seen, device=device)
+                 for s in range(0, len(users), SERVE_BATCH)]
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+
+    recommend_top_n(uf, itf, users[:SERVE_BATCH], n=SERVE_N, seen=seen,
+                    device=device)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # the engine, the factors, seen
+    t1 = time.time()
+    idx, scores = serve_all()
+    t_serve = time.time() - t1
+    peak = torch.cuda.max_memory_allocated()
+    if idx.shape != (engine.nusers, SERVE_N) or scores.shape != idx.shape:
+        raise AssertionError(f"served shapes {idx.shape}, {scores.shape}")
+    if scores.dtype != np.float32 or not np.isfinite(scores).all():
+        raise AssertionError("served scores are not finite float32")
+
+    # a sample of users against a float64 ranking on the host
+    sample = np.random.default_rng(SEED).choice(engine.nusers, SERVE_SAMPLE,
+                                                replace=False)
+    uf64 = uf[torch.as_tensor(sample, device=uf.device)].double().cpu().numpy()
+    ref = uf64 @ itf.double().cpu().numpy().T
+    indptr, items = seen.indptr.cpu().numpy(), seen.items.cpu().numpy()
+    compared, worst = 0, 0.0
+    for row, user in enumerate(sample):
+        mine = items[indptr[user]:indptr[user + 1]]
+        ref[row, mine] = -np.inf
+        if np.isin(idx[user], mine).any():
+            raise AssertionError(f"user {user}: a seen item was served")
+        order = np.lexsort((np.arange(ref.shape[1]), -ref[row]))
+        head = ref[row, order[:SERVE_N + 1]]
+        worst = max(worst, float(np.abs(scores[user]
+                                        - head[:SERVE_N]).max()))
+        if np.all(head[:-1] - head[1:] > SERVE_GAP):
+            if not np.array_equal(idx[user], order[:SERVE_N]):
+                raise AssertionError(
+                    f"user {user}: served {idx[user].tolist()}, float64 "
+                    f"ranking {order[:SERVE_N].tolist()}")
+            compared += 1
+    if not worst <= SERVE_TOL:
+        raise AssertionError(f"served scores differ from float64 by {worst}")
+    if compared < SERVE_SAMPLE // 4:
+        raise AssertionError(f"only {compared} of {SERVE_SAMPLE} sampled "
+                             f"users have gaps above {SERVE_GAP}")
+    torch.cuda.empty_cache()
+    _line("8 serving", t0, cli_preset="ml100k", cli_users=len(recs),
+          topn=SERVE_N, users=engine.nusers, items=engine.nitems, k=K_MAIN,
+          batch_users=SERVE_BATCH, seen_ratings=int(items.shape[0]),
+          max_degree=seen.max_degree, pos_set_s=round(t_seen, 3),
+          serve_s=round(t_serve, 4),
+          users_per_s=round(engine.nusers / t_serve, 1), peak_bytes=peak,
+          resident_before_bytes=resident,
+          sampled_users=SERVE_SAMPLE, lists_compared=compared,
+          max_abs_score_err_vs_f64=worst)
+
+
 def main() -> int:
     import torch
 
+    t_start = time.time()
     card()
     build()
     timing = kernel_check()
-    cli_path()
-    data, t_data = ml20m_data()
-    main_path = model_scale(data, t_data)
-    split_engine = main_path.pop("engine")
-    profile_split_user(split_engine)
-    fused_timing = fused_kernel_check(split_engine)
-    torch.cuda.empty_cache()
-    fused = fused_path(data, main_path, split_engine)
+    with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as tmp:
+        cli_files = cli_path(out_dir=tmp)  # phase 8 serves from its files
+        data, t_data = ml20m_data()
+        main_path = model_scale(data, t_data)
+        split_engine = main_path.pop("engine")
+        profile_split_user(split_engine)
+        fused_timing = fused_kernel_check(split_engine)
+        torch.cuda.empty_cache()
+        fused = fused_path(data, main_path, split_engine)
+        gathers = gather_check(split_engine)
+        serving(cli_files, data, split_engine)
+    print(f"phase total: ok seconds={time.time() - t_start:.1f}", flush=True)
     source = "qmf_tpu_torch/csrc/build_solve.cu"
+
+    def gather_entry(name, replaces, shape):
+        at = gathers[shape]
+        return {
+            "name": f"gather_{name}",
+            "route": "cuda",
+            "source": "qmf_tpu_torch/csrc/gather.cu",
+            "replaces": replaces,
+            "launches": gathers["launches"][name],
+            "max_abs_err": 0.0,  # torch.equal held in phase 7
+            "ms": at[name],
+            "plain_ms": at["plain_fill" if name == "fill" else "plain"],
+            "bound_ms": at["bound"],
+            "bound_by": "bytes",
+            "library_ms": at["index_select"],
+        }
+
     print(json.dumps({"kernels": [{
         "name": "chol_solve",
         "route": "cuda",
@@ -924,7 +1252,10 @@ def main() -> int:
         "bound_ms": fused["bound_ms"],
         "bound_by": fused["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }, gather_entry("vec", "benchmarks/gather_micro.py:73", "micro"),
+        gather_entry("warp", "benchmarks/gather_micro.py:99", "micro"),
+        gather_entry("fill", "benchmarks/vmem_gather_micro.py:72", "vmem"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,7 @@ qmf/wals.cpp:26-50), plus ``--device``::
         -user_factors=./user.dat -item_factors=./item.dat
 
 A uniform init file for ``--distribution_file`` comes from
-``python -m qmf_tpu.cli.gen_uniform``. ``--nthreads`` is accepted for
+``python -m qmf_tpu_torch.cli.gen_uniform``. ``--nthreads`` is accepted for
 compatibility. Only ``--n_devices=1`` runs: multi-device training is not
 ported yet (ROADMAP.md, queue 1).
 """

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("csrc/chol_solve.cu", "csrc/build_solve.cu")
+SOURCES = ("csrc/chol_solve.cu", "csrc/build_solve.cu", "csrc/gather.cu")
 HEADERS = ("csrc/chol_core.cuh",)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libqmf_kernels.so")
@@ -141,6 +141,11 @@ def load() -> ctypes.CDLL:
         lib.qmf_build_solve_limits.restype = None
         lib.qmf_chol_solve_limits.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.qmf_chol_solve_limits.restype = ci
+        lib.qmf_gather.argtypes = [vp, vp, vp, ll, ll, ll] + [ci] * 6 + [
+            vp, ctypes.POINTER(ll)]
+        lib.qmf_gather.restype = ci
+        lib.qmf_l2_reset.argtypes = [ci, vp, ctypes.POINTER(ll)]
+        lib.qmf_l2_reset.restype = ci
         lib.qmf_cuda_error_string.argtypes = [ci]
         lib.qmf_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -284,3 +289,60 @@ def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
             f"H slices {h_slices}, D slices {n_slices}, {yg.dtype}): "
             f"CUDA error {err}: {msg}"
         )
+
+
+GATHER_VARIANTS = ("vec", "warp")
+
+
+def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+                  variant: str, fill: bool, l2_window: bool,
+                  width: int) -> None:
+    """Launch csrc/gather.cu on the current stream: out[r] = table[idx[r]].
+
+    table (rows, k) and out (R, k) contiguous CUDA tensors of one dtype, idx
+    (R,) int32 or int64 on the same device. ``width`` is the vector width in
+    bytes (16, 8, 4 or 2) and must divide a row's bytes and both base
+    pointers. ``fill`` (variant "vec" only) gives zero rows for indices that
+    are out of range after one wrap of the negatives. ``l2_window`` pins the
+    table in L2 for this launch; :func:`reset_l2_persistence` gives the
+    persisting carve-out back afterwards. Does not synchronise. Raises on a
+    refused launch, and where the device refuses the window or grants less
+    persisting L2 than the table takes.
+    """
+    lib = load()
+    row_bytes = table.shape[1] * table.element_size()
+    granted = ctypes.c_longlong(0)
+    err = lib.qmf_gather(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), out.shape[0],
+        table.shape[0], row_bytes, width, int(idx.dtype == torch.int64),
+        GATHER_VARIANTS.index(variant), int(fill), int(l2_window),
+        table.device.index if table.device.index is not None else 0,
+        torch.cuda.current_stream(table.device).cuda_stream,
+        ctypes.byref(granted),
+    )
+    if err != 0:
+        msg = lib.qmf_cuda_error_string(err).decode()
+        window = (f", L2 window of {table.shape[0] * row_bytes} bytes, "
+                  f"persisting carve-out {granted.value} bytes"
+                  if l2_window else "")
+        raise RuntimeError(
+            f"gather launch failed (R={out.shape[0]}, rows={table.shape[0]}, "
+            f"row bytes {row_bytes}, width {width}, {idx.dtype}, {variant}"
+            f"{', fill' if fill else ''}{window}): CUDA error {err}: {msg}"
+        )
+
+
+def reset_l2_persistence(device: torch.device) -> int:
+    """Wait for the current stream, return every persisting L2 line to
+    normal and the persisting carve-out to 0, after launches with
+    ``l2_window``. Returns the carve-out in bytes afterwards."""
+    lib = load()
+    limit = ctypes.c_longlong(-1)
+    err = lib.qmf_l2_reset(
+        device.index if device.index is not None else 0,
+        torch.cuda.current_stream(device).cuda_stream, ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError(
+            f"L2 reset failed: CUDA error {err}: "
+            f"{lib.qmf_cuda_error_string(err).decode()}")
+    return limit.value

@@ -260,11 +260,15 @@ def train_epoch(user_factors, item_factors, user_arrays, item_arrays,
 
 
 def compute_scores(user_factors: torch.Tensor, item_factors: torch.Tensor,
+                   item_biases: torch.Tensor | None = None,
                    user_idx: torch.Tensor | None = None) -> torch.Tensor:
-    """Dense score matrix: scores[t, i] = <p_u(t), q_i> (replaces the
-    reference's per-user scoring loop, qmf/Engine.cpp:73-96)."""
+    """Dense score matrix: scores[t, i] = bias_i + <p_u(t), q_i> (replaces
+    the reference's per-user scoring loop, qmf/Engine.cpp:73-96)."""
     u = user_factors if user_idx is None else user_factors[user_idx]
-    return torch.matmul(u, item_factors.T)
+    scores = torch.matmul(u, item_factors.T)
+    if item_biases is not None:
+        scores = scores + item_biases[None, :]
+    return scores
 
 
 def naive_reference_solve(

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 from qmf_tpu import config as jax_config
+from qmf_tpu.cli import gen_uniform as jax_gen_uniform_cli
+from qmf_tpu.data import gen_uniform as jax_gen_uniform
 from qmf_tpu.data import dataset as jax_dataset
 from qmf_tpu.data import factor_io as jax_factor_io
 from qmf_tpu.data import id_index as jax_id_index
@@ -22,6 +24,8 @@ from qmf_tpu.utils import checkpoint as jax_ckpt
 from qmf_tpu.utils import flags as jax_flags
 from qmf_tpu.utils import logging as jax_logging
 from qmf_tpu_torch import config as port_config
+from qmf_tpu_torch.cli import gen_uniform as port_gen_uniform_cli
+from qmf_tpu_torch.data import gen_uniform as port_gen_uniform
 from qmf_tpu_torch.data import dataset as port_dataset
 from qmf_tpu_torch.data import factor_io as port_factor_io
 from qmf_tpu_torch.data import id_index as port_id_index
@@ -196,3 +200,41 @@ def test_metrics_config_alike():
     jax_fields = [(f.name, f.default)
                   for f in dataclasses.fields(jax_config.MetricsConfig)]
     assert port_fields == jax_fields
+
+
+@pytest.mark.parametrize("count,seed,bound", [
+    (1, 0, 0.01), (123, 0, 0.01), (123, 7, 0.01), (1000, 7, 0.5),
+])
+def test_gen_uniform_byte_identical(tmp_path, count, seed, bound):
+    got, want = tmp_path / "port.dat", tmp_path / "jax.dat"
+    assert port_gen_uniform(count, str(got), bound=bound,
+                            seed=seed) == str(got)
+    jax_gen_uniform(count, str(want), bound=bound, seed=seed)
+    assert got.read_bytes() == want.read_bytes()
+    vals = np.loadtxt(got, ndmin=1)
+    assert vals.shape == (count,) and np.all(np.abs(vals) <= bound)
+
+
+@pytest.mark.parametrize("argv", [
+    ["123"], ["50", "named.dat", "--seed=3"], ["20", "--bound=2.5", "--seed=1"],
+])
+def test_gen_uniform_cli_alike(tmp_path, monkeypatch, argv):
+    """Return code, file name and (with a seed) the bytes, as
+    tests/test_cli.py holds qmf_tpu's CLI."""
+    files = {}
+    for name, cli in (("port", port_gen_uniform_cli),
+                      ("jax", jax_gen_uniform_cli)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        assert cli.main(list(argv)) == 0
+        out = argv[1] if len(argv) > 1 and not argv[1].startswith("-") \
+            else "uniform.dat"
+        files[name] = (tmp_path / name / out).read_bytes()
+    vals = np.loadtxt((tmp_path / "port" / out), ndmin=1)
+    assert vals.shape == (int(argv[0]),)
+    bound = 2.5 if "--bound=2.5" in argv else 0.01
+    assert np.all(np.abs(vals) <= bound)
+    if any(a.startswith("--seed") for a in argv):
+        assert files["port"] == files["jax"]
+    with pytest.raises(port_flags.FlagError):
+        port_gen_uniform_cli.main(["--bogus=1"])

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from qmf_tpu_torch import kernels
-from qmf_tpu_torch.ops import build_solve, spd_solve
+from qmf_tpu_torch.ops import build_solve, gather, spd_solve
 
 pytestmark = pytest.mark.gpu
 
@@ -231,3 +231,76 @@ def test_build_solve_runs_at_its_limits(cuda, dtype, want, h):
                                        limits) >= 2
     for t in (x, b, x_hot):
         assert torch.isfinite(t).all()
+
+
+def _gather_inputs(rows, k, n, dtype, idx_dtype, device, fill=False, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = torch.randn(rows, k, generator=g, dtype=torch.float64).to(dtype)
+    lo, hi = (-rows - 3, rows + 3) if fill else (0, rows)
+    idx = torch.randint(lo, hi, (n,), generator=g).to(idx_dtype)
+    return table.to(device), idx.to(device)
+
+
+def _check_gather(table, idx, kernel, **kw):
+    """Bit for bit against the plain version, one launch counted."""
+    before = dict(gather.launches)
+    got = gather.gather_rows(table, idx, **kw)
+    torch.cuda.synchronize()
+    want = gather.gather_rows_plain(table, idx, kw.get("fill", False))
+    assert got.shape == want.shape and torch.equal(got, want)
+    before[kernel] += 1
+    assert gather.launches == before
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [1, 255, 513, 1 << 20])
+@pytest.mark.parametrize("k", [1, 3, 30, 64, 65, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("kernel", ["vec", "warp", "fill"])
+def test_gather_matches_plain(cuda, kernel, dtype, k, n, idx_dtype):
+    fill = kernel == "fill"
+    table, idx = _gather_inputs(997, k, n, dtype, idx_dtype, cuda, fill,
+                                seed=k + n)
+    _check_gather(table, idx, kernel, fill=fill,
+                  variant="vec" if fill else kernel)
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 2),
+                                         (torch.float32, 4),
+                                         (torch.float64, 8)])
+@pytest.mark.parametrize("kernel", ["vec", "warp", "fill"])
+def test_gather_from_a_misaligned_view(cuda, kernel, dtype, width):
+    """A table that starts one element into its storage: 128-, 256- or
+    512-byte rows that no 16-byte vector can copy."""
+    fill = kernel == "fill"
+    g = torch.Generator(device="cpu").manual_seed(5)
+    flat = torch.randn(1 + 997 * 64, generator=g, dtype=torch.float64)
+    table = flat.to(dtype).to(cuda)[1:].view(997, 64)
+    lo, hi = (-1000, 1000) if fill else (0, 997)
+    idx = torch.randint(lo, hi, (40, 50), generator=g).to(cuda)
+    assert table.data_ptr() % 16 and gather.vector_bytes(
+        64 * table.element_size(), table.data_ptr(), 0) == width
+    _check_gather(table, idx, kernel, fill=fill,
+                  variant="vec" if fill else kernel)
+
+
+def test_gather_l2_window_sets_and_resets(cuda):
+    """With the window the result is the same, and the persisting carve-out
+    is back to 0 after the reset."""
+    table, idx = _gather_inputs(65536, 64, 1 << 18, torch.bfloat16,
+                                torch.int32, cuda)
+    try:
+        _check_gather(table, idx, "vec", l2_window=True)
+        _check_gather(table, idx, "fill", fill=True, l2_window=True)
+    finally:
+        assert kernels.reset_l2_persistence(cuda) == 0
+    _check_gather(table, idx, "vec")
+
+
+def test_gather_rejects_a_strided_table(cuda):
+    table, idx = _gather_inputs(100, 64, 10, torch.float32, torch.int64, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_rows(table[:, ::2], idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_rows(table.t(), idx)

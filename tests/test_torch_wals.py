@@ -214,7 +214,12 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(qmf_tpu_torch.__path__, "
         "'qmf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import qmf_tpu_torch.cli.wals, chip_smoke\n"
+        "import qmf_tpu_torch.cli.wals, qmf_tpu_torch.cli.recommend\n"
+        "import qmf_tpu_torch.cli.gen_uniform, chip_smoke\n"
+        "import qmf_tpu_torch.tools.gather_micro\n"
+        "import qmf_tpu_torch.tools.vmem_gather_micro\n"
+        "import qmf_tpu_torch.ops.gather, qmf_tpu_torch.ops.bpr_ops\n"
+        "import qmf_tpu_torch.models.recommend\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
@@ -224,7 +229,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 14
+    assert int(proc.stdout.split()[-1]) >= 36
 
 
 def test_port_imports_nothing_of_qmf_tpu():
@@ -260,7 +265,12 @@ def test_port_imports_nothing_of_qmf_tpu():
     pkg = os.path.join(REPO, "qmf_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
              if f.endswith(".py")]
-    assert len(files) >= 20
+    assert len(files) >= 38
+    for new in ("ops/gather.py", "ops/bpr_ops.py", "models/recommend.py",
+                "cli/recommend.py", "cli/gen_uniform.py",
+                "data/gen_uniform.py", "tools/gather_micro.py",
+                "tools/vmem_gather_micro.py"):
+        assert os.path.join(pkg, new) in files
     bad = []
     for path in files + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as f:
