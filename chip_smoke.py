@@ -50,7 +50,22 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    was seen, scores descend); then recommend_top_n on phase 4's ml20m
    factors for all users in batches of 4,096, n = 10, seen items excluded:
    users/s, peak memory, and 64 sampled users against a numpy float64
-   ranking wherever the score gap to the next item exceeds 1e-4.
+   ranking wherever the score gap to the next item exceeds 1e-4;
+9. BPR (plain tensor ops: qmf_tpu's BPR path reaches no kernel): (a) the
+   hashes and one grouped presample+pack of 2^20 rows, word, bitmap and
+   Bloom membership, on the card against the same calls on CPU tensors,
+   bit for bit; (b) three grouped epochs at a small size in float64 on the
+   card against the CPU on the same keys, within 1e-9, for each
+   item_scatter and once with Bloom membership; (c) the bpr CLI with its
+   defaults on phase 3's ml100k files: factor files, falling losses, test
+   AUC, and the recommend CLI serving from them; (d) BPREngine on phase 4's
+   ml20m data with k = 30, 3 negatives, batch 32,768, float32: the init
+   stages, one warm-up epoch and three timed, real triplet updates a
+   second, losses, test AUC, the overflow count, peak memory; then the last
+   epoch's packed stream decoded as the SGD loop decodes it, every real
+   row checked: no negative chosen before the last round is a positive of
+   its user; then (9p) one epoch under torch.profiler: wall ms beside
+   device ms, launches, the largest kernels by device time.
 
 Then the run's seconds, a JSON line describing each kernel (times,
 launches, errors, and the bound: the larger of the bytes it must move over
@@ -93,6 +108,12 @@ GATHER_KS, GATHER_RS, GATHER_ROWS = (1, 3, 30, 64, 65, 128), \
 # on |f32 score - f64 score| (k = 64 products of factors below ~1).
 SERVE_BATCH, SERVE_N, SERVE_SAMPLE, SERVE_GAP, SERVE_TOL = \
     4096, 10, 64, 1e-4, 1e-4
+# Phase 9: bench.py's BPR configuration (k, negatives, batch), the rows of
+# the presample comparison, CUDA against CPU in float64 on the same keys
+# (atomics reorder float64 sums by rounding only), and the warm-up and
+# timed epochs at ml20m.
+BPR_K, BPR_NEG, BPR_BATCH = 30, 3, 32768
+BPR_PACK_ROWS, BPR_F64_TOL, BPR_WARM, BPR_TIMED = 1 << 20, 1e-9, 1, 3
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on them.
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -1179,6 +1200,414 @@ def serving(cli_files: dict, data, engine, device: str = "cuda") -> None:
           max_abs_score_err_vs_f64=worst)
 
 
+def _bpr_positives(n_rows: int, n_users: int, n_items: int, seed: int,
+                   zipf: bool):
+    """Seeded (user, item) pairs; with ``zipf`` the items are heavy-headed,
+    so that presampled candidates collide with positives often."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, n_rows).astype(np.int32)
+    if zipf:
+        i = np.minimum(rng.zipf(1.3, n_rows) - 1, n_items - 1)
+    else:
+        i = rng.integers(0, n_items, n_rows)
+    return u, i.astype(np.int32)
+
+
+def _bpr_structures(u, i, n_users, n_items, bloom_bits, device):
+    from qmf_tpu_torch.ops import bpr_ops
+
+    return {
+        "bitmap": bpr_ops.make_pos_bitmap(u, i, n_users, n_items,
+                                          device=device),
+        "bloom": bpr_ops.make_pos_bloom(u, i, n_users, bloom_bits,
+                                        device=device),
+        "set": bpr_ops.make_pos_set(u, i, n_users, device=device),
+    }
+
+
+def bpr_check(device: str = "cuda") -> None:
+    """Phases 9a and 9b: the BPR ops on the card against the same calls on
+    CPU tensors, on keys drawn once from a seeded CPU generator."""
+    import numpy as np
+    import torch
+
+    from qmf_tpu_torch.ops import bpr_ops
+
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(SEED)
+    n_rounds = 4
+
+    def same(name, fn):
+        """fn(device) on the card and on the CPU: equal integer tensors."""
+        got, want = fn(device), fn("cpu")
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+                raise AssertionError(f"{name}: the card and the CPU differ")
+
+    # (a) the hashes: keys 0 and 2^30 - 1 beside drawn ones, slots up to
+    # 2^31 - 1; then one presample + pack of 2^20 rows per membership
+    rk, ks6 = bpr_ops.draw_grouped_keys(gen, n_rounds, True)
+    rk[1, 0], rk[2, 1], rk[3, 2] = 0, (1 << 30) - 1, 0
+    ks3 = bpr_ops._draw_keys(gen, (3,))
+    slots = torch.cat([
+        torch.tensor([0, 1, 2**31 - 1], dtype=torch.int32),
+        torch.randint(0, 2**31 - 1, (BPR_PACK_ROWS,), generator=gen,
+                      dtype=torch.int32)])
+    n_users, n_items = 50_000, 26_744  # ml20m's items: a tail word
+    for r in range(n_rounds):
+        same(f"_mix32 round {r}",
+             lambda d: bpr_ops._mix32(rk[r].to(d), slots.to(d)))
+        for n in (1, 2, n_items, 2**31 - 1):
+            same(f"_cand_hash n_items={n}",
+                 lambda d: bpr_ops._cand_hash(rk[r].to(d), slots.to(d), n))
+    same("_word_probe", lambda d: bpr_ops._word_probe(
+        rk[0].to(d), slots.to(d), (n_items + 31) // 32))
+    same("_feistel_bijection", lambda d: bpr_ops._feistel_bijection(
+        ks6.to(d), 37, 15))
+    same("_mix_bijection", lambda d: bpr_ops._mix_bijection(
+        ks3.to(d), 1 << 20, 20))
+    u, i = _bpr_positives(BPR_PACK_ROWS, n_users, n_items, SEED, zipf=True)
+    pos_up = torch.from_numpy(np.stack([u, i], axis=1))
+    st = {d: _bpr_structures(u, i, n_users, n_items, 256, d)
+          for d in (device, "cpu")}
+    later_rounds = {}
+    for membership in ("word", "bitmap", "bloom"):
+        def pack(d, membership=membership):
+            words = st[d]["bloom" if membership == "bloom" else "bitmap"]
+            return bpr_ops._sample_pack_grouped_body(
+                rk.to(d), ks6.to(d), pos_up.to(d), words.words,
+                n_items=n_items, n_real=BPR_PACK_ROWS - 1000,
+                num_neg=BPR_NEG, n_rounds=n_rounds,
+                wpu=words.words_per_user, u_shift=1 + 2 * BPR_NEG,
+                feistel_b=BPR_BATCH.bit_length() - 1,
+                collide_cap=BPR_PACK_ROWS,
+                membership=membership, indptr=st[d]["set"].indptr,
+                csr_items=st[d]["set"].items,
+                max_degree=st[d]["set"].max_degree)
+        same(f"_sample_pack_grouped_body {membership}", pack)
+        enc = pack(device)[0]
+        later_rounds[membership] = int((((enc >> 1) & 3) != 0).sum())
+        if not later_rounds[membership]:
+            raise AssertionError(f"{membership}: no slot left round 0")
+    del st, pos_up
+    _line("9a bpr hashes", t0, rows=BPR_PACK_ROWS, users=n_users,
+          items=n_items, slots_hashed=slots.numel(),
+          memberships="word,bitmap,bloom", equal="bit for bit",
+          slot0_past_round0=later_rounds)
+
+    # (b) three grouped epochs in float64, the card against the CPU. Items
+    # are uniform: a head item that fills a third of a batch makes the
+    # summed bias pull (lr * rows * num_neg * bias_lambda > 2) overshoot,
+    # and the iteration then amplifies the rounding it is compared to.
+    t0 = time.time()
+    n_users, n_items, n_pos, bs, k = 300, 500, 1 << 13, 256, 8
+    u, i = _bpr_positives(n_pos, n_users, n_items, SEED + 1, zipf=False)
+    pos_up = torch.from_numpy(np.stack([u, i], axis=1))
+    rng = np.random.default_rng(SEED)
+    init = [rng.normal(0, 0.1, s) for s in ((n_users, k), (n_items, k),
+                                            (n_items,))]
+    st = {d: _bpr_structures(u, i, n_users, n_items, 256, d)
+          for d in (device, "cpu")}
+    keys = [bpr_ops.draw_grouped_keys(gen, n_rounds, True) for _ in range(3)]
+    worst = {}
+    for scatter, sampler, member in (("seq", "word", "bitmap"),
+                                     ("merged", "rounds", "bitmap"),
+                                     ("dense", "word", "bitmap"),
+                                     ("seq", "rounds", "bloom")):
+        out = {}
+        for d in (device, "cpu"):
+            params = bpr_ops.BPRParams(*(
+                torch.tensor(a, dtype=torch.float64, device=d) for a in init))
+            for rk_e, ks_e in keys:
+                params, over = bpr_ops.sgd_epoch_grouped_keyed(
+                    params, rk_e.to(d), ks_e.to(d), pos_up.to(d),
+                    st[d][member], 0.05, 0.025, 0.0025, 1.0, n_items=n_items,
+                    n_real=n_pos - 100, use_biases=True, num_neg=BPR_NEG,
+                    neg_rounds=n_rounds, batch_size=bs, collide_cap=n_pos,
+                    pos_set=st[d]["set"] if member == "bloom" else None,
+                    item_scatter=scatter, sampler=sampler)
+            out[d] = ([t.cpu() for t in params], int(over))
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(out[device][0], out["cpu"][0]))
+        moved = float((out["cpu"][0][0]
+                       - torch.as_tensor(init[0])).abs().max())
+        if not err <= BPR_F64_TOL or out[device][1] != out["cpu"][1]:
+            raise AssertionError(
+                f"grouped epochs {scatter}/{sampler}/{member}: the card and "
+                f"the CPU differ by {err} (bound {BPR_F64_TOL}), overflow "
+                f"{out[device][1]} vs {out['cpu'][1]}")
+        if not moved > 1e-3:
+            raise AssertionError(f"{scatter}: the epochs moved nothing")
+        worst[f"{scatter}/{sampler}/{member}"] = err
+    _line("9b bpr epochs f64", t0, positives=n_pos, users=n_users,
+          items=n_items, k=k, batch=bs, epochs=3, tol=BPR_F64_TOL,
+          max_abs_diff_card_vs_cpu=worst)
+
+
+class _EpochLog:
+    """Collects the (epoch, train loss, test loss) the engines log."""
+
+    def __init__(self):
+        import logging
+        import re
+
+        outer = self
+        self.rows = []
+        pattern = re.compile(
+            r"epoch (\d+): train loss = (\S+), test loss = (\S+) ")
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                m = pattern.match(record.getMessage())
+                if m:
+                    outer.rows.append((int(m[1]), float(m[2]), float(m[3])))
+
+        self.handler = Handler()
+        self.logger = logging.getLogger("qmf_tpu_torch")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def bpr_cli(cli_files: dict, device: str = "cuda") -> None:
+    """Phase 9c: the bpr CLI with its defaults on phase 3's ml100k files,
+    then the recommend CLI on the factor files it wrote."""
+    import numpy as np
+
+    from qmf_tpu_torch.cli import bpr as cli
+    from qmf_tpu_torch.cli import recommend as recommend_cli
+    from qmf_tpu_torch.data import read_dataset
+
+    t0 = time.time()
+    tmp = os.path.dirname(cli_files["user.dat"])
+    paths = {n: os.path.join(tmp, "bpr_" + n) for n in
+             ("user.dat", "item.dat", "recs.txt")}
+    with _EpochLog() as epochs:
+        rc = cli.main([
+            f"--train_dataset={cli_files['train.txt']}",
+            f"--test_dataset={cli_files['test.txt']}",
+            f"--user_factors={paths['user.dat']}",
+            f"--item_factors={paths['item.dat']}",
+            f"--device={device}",
+        ])
+    if rc != 0:
+        raise AssertionError(f"bpr CLI returned {rc}")
+    losses = [tr for _, tr, _ in epochs.rows]
+    if len(losses) != 10 or not np.isfinite(losses).all():
+        raise AssertionError(f"bpr CLI logged losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"bpr CLI train loss did not fall: {losses}")
+    test = read_dataset(cli_files["test.txt"])
+    auc, u_file, _, _ = _auc_of_files(paths["user.dat"], paths["item.dat"],
+                                      test, device)
+    if not auc > 0.5:
+        raise AssertionError(f"bpr CLI test AUC {auc} <= 0.5")
+    rc = recommend_cli.main([
+        f"--user_factors={paths['user.dat']}",
+        f"--item_factors={paths['item.dat']}",
+        f"--exclude_seen={cli_files['train.txt']}",
+        f"--topn={SERVE_N}", f"--output={paths['recs.txt']}",
+        f"--device={device}",
+    ])
+    if rc != 0:
+        raise AssertionError(f"recommend CLI on BPR factors returned {rc}")
+    recs = _parse_recommendations(paths["recs.txt"])
+    if len(recs) != u_file.shape[0] or any(
+            len(v) != SERVE_N for v in recs.values()):
+        raise AssertionError("recommend CLI on BPR factors: wrong lists")
+    _line("9c bpr cli", t0, preset="ml100k", users=u_file.shape[0],
+          k=u_file.shape[1], epochs=len(losses),
+          train_losses=[f"{x:.6g}" for x in (losses[0], losses[-1])],
+          test_losses=[f"{x:.6g}" for x in (epochs.rows[0][2],
+                                            epochs.rows[-1][2])],
+          test_auc=auc, recommend_users=len(recs))
+
+
+def _check_stream(engine, rk, ks, device: str) -> dict:
+    """Rebuild the packed stream of the epoch that drew (rk, ks), decode it
+    as the SGD loop does, and check every real row: a negative chosen
+    before the last round is an item below n_items and no positive of its
+    user. Returns counts."""
+    import torch
+
+    from qmf_tpu_torch.ops import bpr_ops
+
+    cfg = engine.config
+    num_neg, n_rounds = cfg.num_negative_samples, cfg.neg_resample_rounds
+    bitmap = engine._pos_bitmap
+    u_shift = 1 + 2 * num_neg
+    enc, _, _ = bpr_ops._sample_pack_grouped_body(
+        rk, ks, engine._grp_up, bitmap.words, n_items=engine.nitems,
+        n_real=engine._n_real_pos, num_neg=num_neg, n_rounds=n_rounds,
+        wpu=bitmap.words_per_user, u_shift=u_shift,
+        feistel_b=engine._grp_batch.bit_length() - 1,
+        collide_cap=engine._collide_cap, membership="word")
+    tables = bpr_ops._slot_tables(num_neg, n_rounds, True, device)
+    real = early = early_bad = last = last_pos = 0
+    chunk = 1 << 22
+    for s in range(0, enc.shape[0], chunk):
+        ue = enc[s:s + chunk]
+        row_idx = torch.arange(s, s + ue.shape[0], dtype=torch.int32,
+                               device=device)
+        negs, rounds = bpr_ops._decode_negatives(
+            ue, row_idx, rk, tables, engine.nitems, n_rounds, True,
+            bitmap.words_per_user)
+        valid = ((ue & 1) == 1)[:, None]
+        users = bpr_ops._shift_right_logical(ue, u_shift)[:, None].expand(
+            -1, num_neg)
+        in_range = negs < engine.nitems
+        member = bpr_ops._is_member_bitmap(
+            bitmap, users, torch.where(in_range, negs, 0))
+        is_early = valid & (rounds < n_rounds - 1)
+        is_last = valid & (rounds == n_rounds - 1)
+        real += int(valid.sum())
+        early += int(is_early.sum())
+        early_bad += int((is_early & (member | ~in_range)).sum())
+        last += int(is_last.sum())
+        last_pos += int((is_last & member).sum())
+    if real != engine._n_real_pos:
+        raise AssertionError(f"stream holds {real} real rows, expected "
+                             f"{engine._n_real_pos}")
+    if early_bad:
+        raise AssertionError(f"{early_bad} negatives chosen before the last "
+                             "round are positives of their user")
+    return {"slots": real * num_neg, "chosen_early": early,
+            "chosen_early_positive": early_bad, "last_round": last,
+            "last_round_positive": last_pos}
+
+
+def bpr_scale(data, device: str = "cuda") -> dict:
+    """Phase 9d: BPREngine at ml20m scale with bench.py's BPR
+    configuration, through init, init_test and optimize."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from qmf_tpu_torch import BPRConfig, MetricsConfig
+    from qmf_tpu_torch.metrics import MetricsEngine
+    from qmf_tpu_torch.models import BPREngine
+
+    t0 = time.time()
+    train, test = data
+    me = MetricsEngine(MetricsConfig(num_test_users=3000, seed=SEED))
+    me.add_test_avg_metric("auc")
+    cfg = BPRConfig(nepochs=BPR_WARM + BPR_TIMED, nfactors=BPR_K,
+                    num_negative_samples=BPR_NEG, batch_size=BPR_BATCH,
+                    init_seed=0)
+    engine = BPREngine(cfg, me, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t1 = time.time()
+    engine.init(train)
+    t_init = time.time() - t1
+    t1 = time.time()
+    engine.init_test(test)
+    torch.cuda.synchronize()
+    t_init_test = time.time() - t1
+    if not (engine._grouped and engine._pos_bitmap is not None
+            and cfg.neg_sampler == "word"):
+        raise AssertionError("ml20m did not take the grouped word path")
+    epochs, drawn = [], []
+    engine.progress_cb = lambda *row: epochs.append(row)
+    draw = engine._draw_grouped_keys
+
+    def recording_draw():
+        drawn.append(draw())
+        return drawn[-1]
+
+    engine._draw_grouped_keys = recording_draw
+    engine.optimize()
+    engine._draw_grouped_keys = draw
+    peak = torch.cuda.max_memory_allocated()
+    train_losses = [tr for _, tr, _, _ in epochs]
+    test_losses = [te for _, _, te, _ in epochs]
+    timed = [dt for _, _, _, dt in epochs[BPR_WARM:]]
+    if len(epochs) != cfg.nepochs or not np.isfinite(
+            train_losses + test_losses).all():
+        raise AssertionError(f"losses {train_losses} {test_losses}")
+    if any(b >= a for a, b in zip(train_losses, train_losses[1:])):
+        raise AssertionError(f"train loss did not fall: {train_losses}")
+    _, auc = me.last("test_avg_auc")
+    if not auc > 0.5:
+        raise AssertionError(f"BPR test AUC {auc} <= 0.5")
+    if not all(torch.isfinite(t).all() for t in engine.params):
+        raise AssertionError("non-finite BPR parameters")
+    stream = _check_stream(engine, *drawn[-1], device)
+    epoch_s = statistics.median(timed)
+    steps = engine._grp_up.shape[0] // engine._grp_batch
+    _line("9d bpr ml20m", t0, users=engine.nusers, items=engine.nitems,
+          positives=engine._n_real_pos, k=BPR_K, negatives=BPR_NEG,
+          batch=BPR_BATCH, steps_per_epoch=steps, dtype=cfg.dtype,
+          init_s=round(t_init, 3), init_stages=engine._init_stages,
+          init_test_s=round(t_init_test, 3),
+          warmup_epoch_s=[round(dt, 4) for _, _, _, dt in epochs[:BPR_WARM]],
+          epoch_s=[round(dt, 4) for dt in timed],
+          median_epoch_s=round(epoch_s, 4),
+          real_triplets=engine._n_real_triplets,
+          bpr_triplet_updates_per_s=round(
+              engine._n_real_triplets / epoch_s, 1),
+          train_losses=[f"{x:.6g}" for x in train_losses],
+          test_losses=[f"{x:.6g}" for x in test_losses], test_auc=auc,
+          overflow_slots=engine.overflow_slots, collide_cap=engine._collide_cap,
+          bitmap_bytes=engine._pos_bitmap.words.numel() * 4,
+          peak_bytes=peak, resident_before_bytes=before,
+          stream_check=stream)
+    return {"engine": engine, "epoch_s": epoch_s}
+
+
+def profile_bpr_epoch(engine, epoch_s: float) -> None:
+    """Phase 9p: one more epoch of phase 9d's engine under torch.profiler,
+    after one unprofiled epoch timed the same way: wall ms beside device
+    ms, launches, and the largest kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+
+    def epoch():
+        t1 = time.time()
+        engine._epoch()
+        torch.cuda.synchronize()
+        return 1e3 * (time.time() - t1)
+
+    wall_ms = epoch()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = epoch()
+
+    def self_ms(e):
+        return e.self_device_time_total / 1e3
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and self_ms(e) > 0]
+    events.sort(key=self_ms, reverse=True)
+    if not events:
+        raise AssertionError("the profile shows no device time")
+    device_ms = sum(self_ms(e) for e in events)
+    launches = sum(e.count for e in events)
+    top = ", ".join(f"{e.key[:60]!r}:{self_ms(e):.3f}ms/{e.count}"
+                    for e in events[:8])
+    _line("9p bpr profile", t0, epoch="grouped word, ml20m",
+          wall_ms=round(wall_ms, 3),
+          optimize_median_epoch_ms=round(1e3 * epoch_s, 3),
+          profiled_wall_ms=round(profiled_wall_ms, 3),
+          device_ms=round(device_ms, 3), launches=launches,
+          device_share_of_wall=round(device_ms / wall_ms, 4),
+          paced_by="host" if device_ms < 0.8 * wall_ms else "device",
+          top=f"[{top}]")
+
+
 def main() -> int:
     import torch
 
@@ -1197,6 +1626,12 @@ def main() -> int:
         fused = fused_path(data, main_path, split_engine)
         gathers = gather_check(split_engine)
         serving(cli_files, data, split_engine)
+        del split_engine
+        torch.cuda.empty_cache()
+        bpr_check()
+        bpr_cli(cli_files)
+        bpr = bpr_scale(data)
+        profile_bpr_epoch(bpr["engine"], bpr["epoch_s"])
     print(f"phase total: ok seconds={time.time() - t_start:.1f}", flush=True)
     source = "qmf_tpu_torch/csrc/build_solve.cu"
 

@@ -3,6 +3,8 @@
 ``WALSConfig`` keeps the reference field names and defaults of
 ``qmf_tpu.config.WALSConfig`` (reference qmf/wals/WALSEngine.h:35-42 and the
 gflags defaults in qmf/wals.cpp:26-31), plus the knobs the port implements.
+``BPRConfig`` has every field of ``qmf_tpu.config.BPRConfig`` with its
+default.
 ``MetricsConfig`` is a copy of ``qmf_tpu.config.MetricsConfig`` (same fields
 and defaults).
 
@@ -31,9 +33,14 @@ _REJECTED_SOLVERS = {
 }
 
 
-def _check_choice(name: str, value, choices) -> None:
+NEG_SAMPLERS = ("word", "rounds")
+ITEM_SCATTERS = ("seq", "merged", "dense")
+
+
+def _check_choice(name: str, value, choices, algo: str = "WALS") -> None:
     if value not in choices:
-        raise ValueError(f"unknown WALS {name} {value!r} (expected one of {choices})")
+        raise ValueError(
+            f"unknown {algo} {name} {value!r} (expected one of {choices})")
 
 
 @dataclasses.dataclass
@@ -107,6 +114,89 @@ class WALSConfig:
             raise ValueError(
                 f"WALS hot_width must be 'auto' or an int >= 0, got {hw!r}"
             )
+
+
+@dataclasses.dataclass
+class BPRConfig:
+    """BPR-SGD hyperparameters."""
+
+    nepochs: int = 10
+    nfactors: int = 30
+    init_learning_rate: float = 0.05
+    bias_lambda: float = 1.0
+    user_lambda: float = 0.025
+    item_lambda: float = 0.0025
+    decay_rate: float = 0.9
+    use_biases: bool = False
+    init_distribution_bound: float = 0.01
+    num_negative_samples: int = 3
+    # Reference meaning: Hogwild thread count (qmf/bpr/BPREngine.cpp:153-164).
+    # Here it has no effect on the math: Hogwild's asynchronous races are
+    # replaced by synchronous vectorized minibatches (see BPREngine docs).
+    # Kept for CLI compatibility.
+    num_hogwild_threads: int = 1
+    shuffle_training_set: bool = True
+
+    # --- port knobs (qmf_tpu's, with its defaults) ---
+    dtype: str = "float32"
+    # Triplets per device step. Plays the role Hogwild's concurrency played:
+    # updates within a batch read the same (pre-batch) parameters, like
+    # concurrent Hogwild threads reading unsynchronized state.
+    batch_size: int = 8192
+    # Rounds of negative re-sampling for candidates that collide with the
+    # user's positive set (reference rejection loop BPREngine-inl.h:48-60).
+    neg_resample_rounds: int = 4
+    # Accepted for compatibility with qmf_tpu, where it picks between a
+    # looped and an unrolled binary search that give equal results; the
+    # port's membership search has one form.
+    unroll_membership: bool = False
+    # Memory budget (MB) for the dense packed (user, item) membership
+    # bitmap used by the negative sampler: ONE random gather per candidate
+    # instead of ~log2(max_degree) chained binary-search gathers, and the
+    # enabler of the shared-word sampler. The bitmap lives in device memory
+    # (sparse-built on device, so host/transfer cost scales with nnz not
+    # U*I). Above the budget (U*I/8 bytes) the sampler falls back to
+    # blocked-Bloom membership + exact CSR verify.
+    bitmap_budget_mb: int = 4096
+    # Grouped packed epochs (one stream row per positive, negatives
+    # reconstructed from 2-bit round indices — ops/bpr_ops.py
+    # sgd_epoch_grouped). Preconditions checked by grouped_path_reject_reason;
+    # set False to force the legacy triplet-stream paths.
+    grouped_epoch: bool = True
+    # Capacity of the compacted collision buffer in the grouped presampler,
+    # as a fraction of the negative-slot count. Colliders beyond the cap
+    # keep their (positive) round-0 candidate — the engine logs when that
+    # happens. 1/16 covers avg_degree/n_items collision rates up to ~6%.
+    collide_cap_frac: float = 1.0 / 16.0
+    # Item-side scatter strategy for the grouped epoch's 1+num_neg B-row
+    # updates per step. "seq": sequential index_add_ calls on the live
+    # table. "merged": one wide (1+num_neg)*B-row index_add_. "dense":
+    # sum the update stream into a fresh zeroed (n_items, k) accumulator
+    # and add it densely. All three are semantically identical
+    # (duplicate-index contributions sum either way).
+    item_scatter: str = "seq"
+    # Negative-sampler strategy for the grouped epoch when the exact bitmap
+    # is available. "word": each positive ROW gathers ONE bitmap word; slot
+    # j's probe rounds r < R-1 test spread-out bits of that word
+    # (distinct-mod-32 offsets per slot/round) and round R-1 is a fresh
+    # unchecked candidate, with residual positive-candidate probability
+    # ~p^2 vs p^R. "rounds": the compacted exact-rejection sampler (each
+    # round an independent uniform candidate). Bloom-membership catalogs and
+    # configs with num_neg*(rounds-1) > 15 always use "rounds" (+ CSR verify
+    # on bloom).
+    neg_sampler: str = "word"
+    # Blocked-Bloom membership for catalogs beyond the exact-bitmap budget
+    # (ops/bpr_ops.py PosBloom): per-user block sized to
+    # next_pow2(bloom_bits_per_pos * avg_degree) bits, clamped to
+    # [256, 2^20]. 8 bits/positive => ~5% false-positive rate with the
+    # 2-hash scheme; memory is U * block/8 bytes, independent of n_items.
+    bloom_bits_per_pos: int = 8
+    init_seed: int = 0
+
+    def __post_init__(self) -> None:
+        _check_choice("neg_sampler", self.neg_sampler, NEG_SAMPLERS, "BPR")
+        _check_choice("item_scatter", self.item_scatter, ITEM_SCATTERS, "BPR")
+        _check_choice("dtype", self.dtype, DTYPES, "BPR")
 
 
 @dataclasses.dataclass

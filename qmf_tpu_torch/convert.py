@@ -9,14 +9,18 @@ initialized from the same dataset::
                             device="cuda", dtype=torch.float32)
     engine.load_factors(u, v)
 
+A BPR engine's three arrays go through ``bpr_params_from_jax`` the same way.
+
 A qmf_tpu checkpoint directory needs no conversion: both engines write and
 read one format (qmf_tpu_torch/utils/checkpoint.py is a copy of
-qmf_tpu/utils/checkpoint.py; ``WALSEngine.enable_checkpointing``).
+qmf_tpu/utils/checkpoint.py; ``WALSEngine.enable_checkpointing``); of a
+BPR checkpoint the factors resume and the PRNG key does not
+(``models/bpr.py``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,3 +42,27 @@ def factors_from_jax(
         torch.tensor(np.asarray(f), dtype=dtype, device=device)
         for f in (user_factors, item_factors)
     )
+
+
+def bpr_params_from_jax(
+    user_factors: np.ndarray,
+    item_factors: np.ndarray,
+    item_biases: Optional[np.ndarray],
+    dtype: torch.dtype,
+    device: str | torch.device,
+):
+    """A qmf_tpu ``BPRParams`` (its three arrays as numpy) as the port's
+    ``ops.bpr_ops.BPRParams`` on ``device`` in ``dtype``, copied. ``None``
+    biases become zeros, which is what an engine without ``use_biases``
+    holds. Assign the result to an initialized ``BPREngine.params``."""
+    from qmf_tpu_torch.ops.bpr_ops import BPRParams
+
+    uf, itf = factors_from_jax(user_factors, item_factors, device, dtype)
+    if item_biases is None:
+        ib = torch.zeros(itf.shape[0], dtype=dtype, device=device)
+    else:
+        ib = torch.tensor(np.asarray(item_biases), dtype=dtype, device=device)
+    if ib.shape != (itf.shape[0],):
+        raise ValueError(
+            f"item biases {tuple(ib.shape)} != ({itf.shape[0]},)")
+    return BPRParams(uf, itf, ib)

@@ -1,23 +1,72 @@
-"""Per-user positive-item sets and their membership tests.
+"""BPR on tensors: positive sets, negative sampling, minibatch SGD, eval loss.
 
-Port of what serving needs from qmf_tpu/ops/bpr_ops.py (:47-279): the CSR
-positive set with its vectorized binary search, the packed bitmap and the
-blocked Bloom filter. The make_* functions are numpy on the host, as the
-originals, and return tensors on the device they are given; the structures
-are equal array for array to qmf_tpu's. The samplers and the SGD step of
-that module are not ported yet (ROADMAP.md, queue 1).
+Port of qmf_tpu/ops/bpr_ops.py, function for function under the same names:
 
-torch has no uint32 arithmetic, so the Bloom hash runs in int64 with every
-product kept below 2^63 and masked to 32 bits; the words stay int32 bit
-patterns, as qmf_tpu stores them.
+- the per-user positive sets (CSR with its vectorized binary search, the
+  packed bitmap, the blocked Bloom filter); the make_* functions are numpy
+  on the host, as the originals, and return tensors on the device they are
+  given; the structures are equal array for array to qmf_tpu's;
+- the hashes (``_feistel_bijection``, ``_mix32``, ``_cand_hash``,
+  ``_word_probe``, ``_mix_bijection``), bit for bit: int32 tensors end to
+  end, so that multiplies wrap as qmf_tpu's do;
+- the grouped epoch: ``_sample_pack_grouped_body`` shuffles the positives,
+  presamples every negative as a 2-bit round index and packs the stream;
+  ``_sgd_epoch_scan_grouped_body`` walks it in minibatches and rebuilds each
+  negative from the hashes; ``sgd_epoch_grouped`` runs both;
+- the legacy triplet epochs: ``_sample_pack_impl`` with
+  ``_sgd_epoch_scan_packed_impl`` (negatives presampled and packed as
+  ``pos << 15 | neg``) and ``_sgd_epoch_impl`` (sampling inside each step,
+  CSR membership); ``sgd_epoch`` chooses between them;
+- the shared step (``_sample_negatives_impl``, ``_sgd_update_body``,
+  ``sgd_step``), ``eval_loss`` and ``sample_negatives_host``.
+
+The update rule is the reference's (BPREngine.cpp:178-220):
+    e = 1 / (1 + exp(score_diff))        (d/dx log sigmoid)
+    b_i += lr (e - bias_lambda b_i);  b_j += lr (-e - bias_lambda b_j)
+    p_u += lr (e (q_i - q_j) - user_lambda p_u)
+    q_i += lr (e p_u - item_lambda q_i)
+    q_j += lr (-e p_u - item_lambda q_j)
+Every update of a minibatch reads the parameters as they were before the
+batch, and contributions to the same row sum.
+
+Every random draw is an argument. A function that qmf_tpu gives a PRNG key
+is split in two here: the inner function takes the drawn integers (round
+keys ``rk``, shuffle keys ``ks``, a permutation, the candidate matrix
+``cands``) and is deterministic, so a test can hand it the integers that
+``jax.random`` drew and compare bit for bit; ``draw_grouped_keys`` and
+``draw_epoch`` draw them from an explicit ``torch.Generator`` on the
+tensors' device, and ``sgd_epoch_grouped``, ``sgd_epoch``,
+``sample_negatives`` and ``sgd_step`` are the thin callers that draw and
+pass on. Nothing here reads torch's global RNG.
+
+The SGD functions update the factor tables in place (``index_add_``) and
+return the same ``BPRParams``: within a step every gather happens before
+the first scatter. On the CPU ``index_add_`` sums duplicates in stream
+order; on a CUDA device it uses atomics, so results agree with the CPU's to
+rounding, not bit for bit.
+
+torch has no uint32 arithmetic: a uint32 modulo goes through int64, the
+Bloom hash runs in int64 with every product kept below 2^63, and
+``jax.lax.shift_right_logical`` is written as an arithmetic shift and a
+mask. The streams and the membership words stay int32.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from qmf_tpu_torch.utils.logging import log
+
+
+class BPRParams(NamedTuple):
+    """Model state; the SGD functions update these tensors in place."""
+
+    user_factors: torch.Tensor  # (U, k)
+    item_factors: torch.Tensor  # (I, k)
+    item_biases: torch.Tensor  # (I,) — zeros and unused when use_biases=False
 
 
 class PosSet(NamedTuple):
@@ -254,3 +303,1256 @@ def _is_member(
         hi = torch.where(go_right | (lo >= hi), hi, mid)
     found = items[torch.clamp(lo, max=last)] == cand
     return found & (lo < end)
+
+
+def _shift_right_logical(x: torch.Tensor, s: int) -> torch.Tensor:
+    """``jax.lax.shift_right_logical`` by a static ``s`` in [1, 31] on
+    int32: torch's ``>>`` fills with the sign, the mask clears the fill."""
+    return (x >> s) & ((1 << (32 - s)) - 1)
+
+
+def _umod(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x.astype(uint32) % uint32(n)`` as int32, through int64."""
+    return ((x.to(torch.int64) & _M32) % n).to(torch.int32)
+
+
+def _draw_keys(generator: torch.Generator, shape) -> torch.Tensor:
+    """int32 keys in [0, 2^30), as ``jax.random.randint(key, shape, 0,
+    1 << 30)`` draws them in qmf_tpu, on the generator's device."""
+    return torch.randint(0, 1 << 30, shape, generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+def _draw_candidates(generator: torch.Generator, shape,
+                     n_items: int) -> torch.Tensor:
+    """Uniform int32 candidate items in [0, n_items)."""
+    return torch.randint(0, n_items, shape, generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+def _sample_negatives_impl(
+    cands: torch.Tensor,  # (rounds, B) int32 candidate items
+    users: torch.Tensor,
+    indptr: torch.Tensor,
+    pos_items: torch.Tensor,
+    max_degree: int,
+    bitmap_words: Optional[torch.Tensor] = None,
+    wpu: int = 0,
+) -> torch.Tensor:
+    """Per row the first round's candidate that is no positive of the row's
+    user; rows that collide in every round keep the last candidate. The
+    candidates are what qmf_tpu draws with ``jax.random.randint`` inside."""
+    pos_set = PosSet(indptr, pos_items, max_degree)
+    rounds = cands.shape[0]
+    neg = torch.zeros_like(users)
+    valid = torch.zeros(users.shape, dtype=torch.bool, device=users.device)
+
+    def member(cand):
+        if bitmap_words is not None:
+            return _is_member_bitmap(
+                PosBitmap(bitmap_words, wpu), users, cand
+            )
+        return _is_member(pos_set, users, cand)
+
+    for r in range(rounds):
+        cand = cands[r]
+        cand_ok = ~member(cand)
+        take = (~valid) & cand_ok
+        neg = torch.where(take, cand, neg)
+        # after the final round, fall back to the last candidate if invalid
+        if r == rounds - 1:
+            neg = torch.where(valid | take, neg, cand)
+        valid = valid | cand_ok
+    return neg
+
+
+def sample_negatives(
+    generator: torch.Generator,
+    users: torch.Tensor,  # (B,) int32 user indices
+    pos_set: PosSet,
+    n_items: int,
+    rounds: int = 4,
+    bitmap: Optional[PosBitmap] = None,
+) -> torch.Tensor:
+    """Sample one negative item per row, rejecting the user's positives.
+
+    Fixed-round re-sampling. Rows still colliding after ``rounds`` rounds
+    keep the last candidate — residual collision probability is
+    (user_degree/n_items)^rounds.
+    """
+    cands = _draw_candidates(generator, (rounds, users.shape[0]), n_items)
+    return _sample_negatives_impl(
+        cands,
+        users,
+        pos_set.indptr,
+        pos_set.items,
+        max_degree=pos_set.max_degree,
+        bitmap_words=None if bitmap is None else bitmap.words,
+        wpu=0 if bitmap is None else bitmap.words_per_user,
+    )
+
+
+def _score_diff(
+    params: BPRParams,
+    users: torch.Tensor,
+    pos: torch.Tensor,
+    neg: torch.Tensor,
+    use_biases: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    pu = params.user_factors[users]  # (B, k)
+    qi = params.item_factors[pos]
+    qj = params.item_factors[neg]
+    d = torch.sum(pu * (qi - qj), dim=1)
+    if use_biases:
+        d = d + params.item_biases[pos] - params.item_biases[neg]
+    return d, pu, qi, qj
+
+
+def _sgd_update_body(
+    params: BPRParams,
+    users: torch.Tensor,  # (B,) int32
+    pos_items: torch.Tensor,  # (B,) int32
+    neg: torch.Tensor,  # (B,) int32 pre-sampled negatives
+    weight: torch.Tensor,  # (B,) 0/1 mask for batch padding
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    use_biases: bool,
+) -> BPRParams:
+    """The SGD update of one minibatch with negatives already sampled, in
+    place. Everything the gradients read is gathered before the first
+    scatter, so they see the pre-batch parameters."""
+    d, pu, qi, qj = _score_diff(params, users, pos_items, neg, use_biases)
+    e = (1.0 / (1.0 + torch.exp(d))) * weight  # masked loss derivative
+    wcol = weight[:, None]
+    if use_biases:
+        bi = params.item_biases[pos_items]
+        bj = params.item_biases[neg]
+
+    params.user_factors.index_add_(
+        0, users, e[:, None] * (qi - qj) - user_lambda * pu * wcol, alpha=lr
+    )
+    epu = e[:, None] * pu
+    params.item_factors.index_add_(
+        0, pos_items, epu - item_lambda * qi * wcol, alpha=lr
+    )
+    params.item_factors.index_add_(
+        0, neg, -epu - item_lambda * qj * wcol, alpha=lr
+    )
+    if use_biases:
+        params.item_biases.index_add_(
+            0, pos_items, e - bias_lambda * bi * weight, alpha=lr
+        )
+        params.item_biases.index_add_(
+            0, neg, -e - bias_lambda * bj * weight, alpha=lr
+        )
+    return params
+
+
+def _sgd_step_body(
+    params: BPRParams,
+    cands: torch.Tensor,  # (neg_rounds, B) int32 candidate items
+    users: torch.Tensor,  # (B,) int32
+    pos_items: torch.Tensor,  # (B,) int32
+    weight: torch.Tensor,  # (B,) 0/1 mask for batch padding
+    indptr: torch.Tensor,
+    set_items: torch.Tensor,
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    use_biases: bool,
+    max_degree: int,
+    bitmap_words: Optional[torch.Tensor] = None,
+    wpu: int = 0,
+) -> BPRParams:
+    """One synchronous minibatch update (reference update(), vectorized)."""
+    neg = _sample_negatives_impl(
+        cands,
+        users,
+        indptr,
+        set_items,
+        max_degree=max_degree,
+        bitmap_words=bitmap_words,
+        wpu=wpu,
+    )
+    return _sgd_update_body(
+        params, users, pos_items, neg, weight, lr, user_lambda, item_lambda,
+        bias_lambda, use_biases=use_biases,
+    )
+
+
+def sgd_step(
+    params: BPRParams,
+    generator: torch.Generator,
+    users: torch.Tensor,
+    pos_items: torch.Tensor,
+    weight: torch.Tensor,
+    pos_set: PosSet,
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    n_items: int,
+    use_biases: bool,
+    neg_rounds: int,
+) -> BPRParams:
+    cands = _draw_candidates(generator, (neg_rounds, users.shape[0]), n_items)
+    return _sgd_step_body(
+        params,
+        cands,
+        users,
+        pos_items,
+        weight,
+        pos_set.indptr,
+        pos_set.items,
+        lr,
+        user_lambda,
+        item_lambda,
+        bias_lambda,
+        use_biases=use_biases,
+        max_degree=pos_set.max_degree,
+    )
+
+
+def _sgd_epoch_impl(
+    params: BPRParams,
+    perm: Optional[torch.Tensor],  # (S*B,) permutation, None = no shuffle
+    cands: torch.Tensor,  # (S, neg_rounds, B) int32 candidate items
+    users_flat: torch.Tensor,  # (S*B,) int32 triplet users (padded)
+    items_flat: torch.Tensor,  # (S*B,) int32 positive items
+    weights_flat: torch.Tensor,  # (S*B,) 0/1 padding mask
+    indptr: torch.Tensor,
+    set_items: torch.Tensor,
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    use_biases: bool,
+    max_degree: int,
+    batch_size: int,
+    bitmap_words: Optional[torch.Tensor] = None,
+    wpu: int = 0,
+) -> BPRParams:
+    """A full training epoch with sampling inside each step.
+
+    The reference walks the (shuffled) positive-pair vector once per epoch,
+    sampling negatives per pair (BPREngine.cpp:146-176). Here the epoch is
+    a loop over minibatches: an optional permutation of the triplet stream,
+    then per step the negatives from that step's candidates and the SGD
+    update.
+
+    Shuffle-semantics note: the reference shuffles the positive-pair vector
+    and emits num_negative_samples consecutive updates per pair
+    (BPREngine.cpp:172-174); permuting the expanded triplet stream is an
+    equivalent-in-distribution ordering.
+    """
+    if perm is not None:
+        users_flat = users_flat[perm]
+        items_flat = items_flat[perm]
+        weights_flat = weights_flat[perm]
+    s = users_flat.shape[0] // batch_size
+    u_steps = users_flat.reshape(s, batch_size)
+    i_steps = items_flat.reshape(s, batch_size)
+    w_steps = weights_flat.reshape(s, batch_size)
+    for t in range(s):
+        _sgd_step_body(
+            params,
+            cands[t],
+            u_steps[t],
+            i_steps[t],
+            w_steps[t],
+            indptr,
+            set_items,
+            lr,
+            user_lambda,
+            item_lambda,
+            bias_lambda,
+            use_biases=use_biases,
+            max_degree=max_degree,
+            bitmap_words=bitmap_words,
+            wpu=wpu,
+        )
+    return params
+
+
+_PACK_SHIFT = 15  # packed items: pos << 15 | neg, valid while n_items <= 32768
+
+# fallback-path diagnoses already emitted (log once per reason set, not per
+# epoch — the condition is fixed at init time)
+_fallback_logged: set = set()
+
+
+def _feistel_bijection(ks: torch.Tensor, m: int, b: int) -> torch.Tensor:
+    """A keyed bijection on [0, m * 2**b) as pure index arithmetic, from
+    the six int32 keys ``ks`` in [0, 2^30).
+
+    Generalizes :func:`_mix_bijection` (power-of-two domains only) to any
+    domain of the form m * 2**b: write x = q * 2**b + r and alternate
+    coordinate updates that are each bijective for a fixed other coordinate
+    (a Feistel-style network):
+
+        r ^= h(q) & (2**b - 1)   (XOR: bijective in r)
+        q  = (q + h(r)) mod m    (add: bijective in q)
+        r  = mix_pow2(r)         (odd-multiplier/xorshift mixer: bijective)
+
+    Three rounds give epoch-shuffle-grade mixing. This keeps the shuffled
+    stream length within 2**b of the real length (callers pick b ~ 16),
+    instead of the up-to-2x padding a pure power-of-two bijection needs.
+    Bit for bit qmf_tpu's on the same keys: int32 throughout, multiplies
+    wrap.
+    """
+    n = m << b
+    mask_b = (1 << b) - 1
+
+    def h(x, k):
+        x = x * ((k << 1) | 1)
+        x = x ^ ((x >> 7) ^ (x >> 13))
+        return x * 0x6C62_72E5 + k
+
+    x = torch.arange(n, dtype=torch.int32, device=ks.device)
+    q = x >> b
+    r = x & mask_b
+    for i in range(3):
+        r = r ^ (h(q, ks[2 * i]) & mask_b)
+        q = (q + (h(r, ks[2 * i + 1]) & 0x3FFF_FFFF)) % m
+        # in-place power-of-two mix of r
+        r = (r * ((ks[2 * i] << 1) | 1)) & mask_b
+        r = r ^ (r >> max(1, b // 2))
+    return q * (1 << b) + r
+
+
+def _mix32(rk: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Murmur-finalizer-grade 32-bit mixer of slot index f under round key
+    rk (3,) int32. Shared by :func:`_cand_hash` and :func:`_word_probe`;
+    must stay bit-identical between the presampling pass and the
+    reconstruction in the SGD loop (the stream stores only a 2-bit round
+    index per slot and the loop recomputes the candidate item from it),
+    and to qmf_tpu's. The mixer depends on int32 wraparound: both
+    arguments must be int32 tensors."""
+    if f.dtype != torch.int32 or rk.dtype != torch.int32:
+        raise TypeError(
+            f"_mix32 needs int32 tensors, got rk {rk.dtype}, f {f.dtype}"
+        )
+    x = f * ((rk[0] << 1) | 1)
+    x = x ^ ((x >> 7) ^ (x >> 13))
+    x = x * ((rk[1] << 1) | 1)
+    x = x ^ (x >> 11)
+    x = x * ((rk[2] << 1) | 1)
+    x = x ^ (x >> 9)
+    return x
+
+
+def _cand_hash(rk: torch.Tensor, f: torch.Tensor, n_items: int) -> torch.Tensor:
+    """Candidate item for slot index f under round key rk (3,) int32,
+    uniform-enough over [0, n_items) (bias ~ n_items/2^32)."""
+    return _umod(_mix32(rk, f), n_items)
+
+
+# In-word probe offsets (mod 32) for the word sampler: slot j's probe
+# round r tests bit (bit0 + _WORD_DELTA[j * (n_rounds-1) + r]) & 31 of the
+# row's ONE gathered bitmap word. Pairwise distinct mod 32, so no two
+# (slot, round) probes of a row can select the same item; spread out, so
+# probes test well-separated bits. Capacity: num_neg * (n_rounds-1) <= 15
+# (checked by word_sampler_applies); beyond it the grouped path falls back
+# to the compacted exact-rejection sampler.
+_WORD_DELTA = (0, 11, 19, 5, 16, 27, 3, 9, 25, 7, 14, 22, 29, 2, 13)
+
+
+def word_sampler_applies(num_neg: int, n_rounds: int) -> bool:
+    """True when the shared-word probe table covers every (slot, round)."""
+    return num_neg * max(n_rounds - 1, 0) <= len(_WORD_DELTA)
+
+
+def _word_probe(rk: torch.Tensor, row: torch.Tensor, wpu: int):
+    """(word, bit0) coordinates of stream row ``row``'s shared probe word:
+    word uniform over the user's ``wpu`` bitmap words, bit0 uniform over
+    its 32 bits. ONE word gather per positive serves every (slot, round)
+    probe of that row — slot j's round-r probe tests bit
+    (bit0 + _WORD_DELTA[j*(n_rounds-1)+r]) & 31. Bit-identical contract
+    with the reconstruction in the SGD loop, like :func:`_cand_hash`."""
+    x = _mix32(rk, row)
+    b0 = x & 31
+    # the logical shift leaves 27 bits, so the uint32 modulo is an int32 one
+    w = _shift_right_logical(x, 5) % wpu
+    return w, b0
+
+
+def _word_tail_mask(n_items: int, wpu: int) -> Optional[int]:
+    """int32 mask of the NEVER-VALID bits of a user's last bitmap word
+    (item ids >= n_items), or None when n_items fills the word exactly.
+    The word sampler ORs it in so an invalid bit always reads "member" and
+    is never chosen as a negative."""
+    tail = n_items - 32 * (wpu - 1)
+    if tail >= 32:
+        return None
+    return int(np.int32(np.uint32((0xFFFFFFFF << tail) & 0xFFFFFFFF)))
+
+
+def _sample_rounds_word(
+    rk: torch.Tensor,  # (R, 3) int32 round keys
+    users: torch.Tensor,  # (n_rows,) int32 user of each stream row
+    bitmap: PosBitmap,
+    n_items: int,
+    n_rounds: int,
+    num_neg: int,
+):
+    """Single-shared-gather variant of :func:`_sample_rounds`: each
+    positive row gathers ONE bitmap word; slot j's rounds r < n_rounds-1
+    probe bits (b0 + _WORD_DELTA[j*(n_rounds-1)+r]) & 31 of that word; the
+    final round is a fresh per-slot :func:`_cand_hash` candidate accepted
+    UNCHECKED.
+
+    Semantics vs the reference's resample-until-non-positive
+    (BPREngine-inl.h:48-60): probe 0 of slot 0 is exactly uniform over the
+    32*wpu padded id domain (tail-masked); later probes and sibling slots
+    stay within the row's 32-item block (conditionally correlated), and
+    the unchecked last round keeps a positive with probability
+    ~p_collision when reached. Within-row slots never collide with each
+    other on probe rounds (_WORD_DELTA offsets are distinct mod 32).
+
+    Returns (rounds (n_rows, num_neg) int32, n_overflow=0) — there is no
+    collision buffer to overflow.
+    """
+    n_rows = users.shape[0]
+    wpu = bitmap.words_per_user
+    dev = users.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    if n_rounds == 1:
+        return torch.zeros((n_rows, num_neg), dtype=torch.int32,
+                           device=dev), zero
+    row = torch.arange(n_rows, dtype=torch.int32, device=dev)
+    w, b0 = _word_probe(rk[0], row, wpu)
+    word = bitmap.words[users * wpu + w]
+    invalid = _word_tail_mask(n_items, wpu)
+    if invalid is not None:
+        word = torch.where(w == wpu - 1, word | invalid, word)
+    cols = []
+    for j in range(num_neg):
+        r_col = torch.full((n_rows,), n_rounds - 1, dtype=torch.int32,
+                           device=dev)
+        for r in range(n_rounds - 2, -1, -1):
+            bit = (b0 + _WORD_DELTA[j * (n_rounds - 1) + r]) & 31
+            member = ((word >> bit) & 1) == 1
+            r_col = torch.where(member, r_col, r)
+        cols.append(r_col)
+    return torch.stack(cols, dim=1), zero
+
+
+def _compact(mask: torch.Tensor, cap: int):
+    """(indices of the first ``cap`` set entries in ascending order, the
+    count beyond ``cap`` as an int32 scalar): what qmf_tpu takes from
+    ``jnp.where(mask, size=cap, fill_value=n)``, without its fill rows.
+    The shape of the result depends on the data, so this waits for the
+    device once."""
+    cidx = torch.nonzero(mask).squeeze(1)
+    n_overflow = torch.clamp(mask.sum(dtype=torch.int32) - cap, min=0)
+    return cidx[:cap], n_overflow
+
+
+def _sample_rounds(
+    rk: torch.Tensor,  # (R, 3) int32 round keys
+    users_slots: torch.Tensor,  # (N,) int32 user of each negative slot
+    bitmap: PosBitmap,
+    n_items: int,
+    n_rounds: int,
+    collide_cap: int,
+):
+    """Pick, per negative slot f, the first round r whose candidate
+    ``_cand_hash(rk[r], f)`` is NOT a positive of users_slots[f].
+
+    Exact-rejection semantics (reference BPREngine-inl.h:48-60) at ~1/R of
+    the membership cost: only round 0 is tested at full stream width; the
+    ~(avg_degree/n_items) fraction of colliding slots is compacted to at
+    most ``collide_cap`` slots, the first in ascending order, and rounds
+    1..R-1 test only those. Slots colliding in every round keep the LAST
+    round's candidate (residual probability (degree/n_items)^R, matching
+    sample_negatives).
+
+    Returns (rounds (N,) int32 in [0, R), n_overflow) where n_overflow
+    counts colliders beyond ``collide_cap`` (those keep round 0; callers
+    should log when it is nonzero — quality degrades gracefully).
+    """
+    n = users_slots.shape[0]
+    dev = users_slots.device
+    f = torch.arange(n, dtype=torch.int32, device=dev)
+    member0 = _is_member_bitmap(
+        bitmap, users_slots, _cand_hash(rk[0], f, n_items)
+    )
+    rounds = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if n_rounds == 1:
+        return rounds, torch.zeros((), dtype=torch.int32, device=dev)
+    cidx, n_overflow = _compact(member0, collide_cap)
+    cf = cidx.to(torch.int32)  # the hash needs its slot index in int32
+    cu = users_slots[cidx]
+    chosen = torch.full(cf.shape, n_rounds - 1, dtype=torch.int32, device=dev)
+    found = torch.zeros(cf.shape, dtype=torch.bool, device=dev)
+    for r in range(1, n_rounds):
+        m_r = _is_member_bitmap(bitmap, cu, _cand_hash(rk[r], cf, n_items))
+        take = (~found) & (~m_r)
+        chosen = torch.where(take, r, chosen)
+        found = found | take
+    # cidx holds real slots only (no fill rows to drop) and each once
+    rounds[cidx] = chosen
+    return rounds, n_overflow
+
+
+def _sample_rounds_bloom(
+    rk: torch.Tensor,  # (R, 3) int32 round keys
+    users_slots: torch.Tensor,  # (N,) int32 user of each negative slot
+    bloom: PosBloom,
+    pos_set: PosSet,
+    n_items: int,
+    n_rounds: int,
+    collide_cap: int,
+):
+    """:func:`_sample_rounds` for catalogs beyond the exact-bitmap budget.
+
+    Same contract and EXACT same sampling semantics, composed differently:
+    round 0 is tested at full stream width against the blocked Bloom filter
+    (2 gathers/slot, no false negatives), and only the Bloom HITS — true
+    collisions plus the ~load^2 false-positive fraction — are compacted to
+    ``collide_cap`` slots and exact-verified with the CSR binary search.
+    Bloom false positives keep their (verified-negative) round-0 candidate;
+    true members walk rounds 1..R-1 under exact CSR tests.
+    """
+    n = users_slots.shape[0]
+    dev = users_slots.device
+    f = torch.arange(n, dtype=torch.int32, device=dev)
+    hit0 = _is_member_bloom(
+        bloom, users_slots, _cand_hash(rk[0], f, n_items)
+    )
+    rounds = torch.zeros((n,), dtype=torch.int32, device=dev)
+    cidx, n_overflow = _compact(hit0, collide_cap)
+    cf = cidx.to(torch.int32)
+    cu = users_slots[cidx]
+    # exact round-0 verdict for the compacted slots
+    m0 = _is_member(pos_set, cu, _cand_hash(rk[0], cf, n_items))
+    chosen = torch.where(m0, n_rounds - 1, 0).to(torch.int32)
+    found = ~m0
+    for r in range(1, n_rounds):
+        m_r = _is_member(pos_set, cu, _cand_hash(rk[r], cf, n_items))
+        take = (~found) & (~m_r)
+        chosen = torch.where(take, r, chosen)
+        found = found | take
+    rounds[cidx] = chosen
+    return rounds, n_overflow
+
+
+def draw_grouped_keys(generator: torch.Generator, n_rounds: int,
+                      shuffle: bool):
+    """The grouped epoch's draws: the round keys ``rk`` (n_rounds, 3) and,
+    with ``shuffle``, the six Feistel keys ``ks`` (else None)."""
+    rk = _draw_keys(generator, (n_rounds, 3))
+    return rk, _draw_keys(generator, (6,)) if shuffle else None
+
+
+def _sample_pack_grouped_body(
+    rk: torch.Tensor,  # (n_rounds, 3) int32 round keys
+    ks: Optional[torch.Tensor],  # (6,) int32 Feistel keys, None = no shuffle
+    pos_up: torch.Tensor,  # (n_stream, 2) int32 [user, pos_item] rows,
+    #                        n_stream = m * 2**feistel_b
+    bitmap_words: torch.Tensor,  # exact-bitmap OR bloom words, per `membership`
+    n_items: int,
+    n_real: int,  # rows < n_real are real positive pairs, >= are padding
+    num_neg: int,
+    n_rounds: int,
+    wpu: int,
+    u_shift: int,
+    feistel_b: int,
+    collide_cap: int,
+    membership: str = "bitmap",
+    indptr: Optional[torch.Tensor] = None,  # CSR verify arrays (bloom mode)
+    csr_items: Optional[torch.Tensor] = None,
+    max_degree: int = 0,
+):
+    """Grouped-epoch pass 1: shuffle positives, presample ALL negatives,
+    encode each row as (u_enc, pos).
+
+    The row's num_neg negatives are NOT stored as items: slot f's candidate
+    under round r is the pure function _cand_hash(rk[r], f), so storing the
+    chosen 2-bit round index per slot is enough for the SGD loop to
+    reconstruct the item with arithmetic. Encoding:
+
+        u_enc = (u << u_shift) | round_j bits (2 per negative) << 1 | valid
+
+    This removes the pos<<15|neg item-count ceiling (any int32 item id
+    works) and cuts the shuffled stream from triplet-level to
+    positive-level width. The (user, item) pairs arrive interleaved as one
+    (n_stream, 2) tensor so the shuffle is one row gather.
+
+    Returns (enc, p, n_overflow); ``rk`` and ``ks`` are the integers that
+    qmf_tpu draws inside its ``_sample_pack_grouped_body``.
+    """
+    n_stream = pos_up.shape[0]
+    if ks is not None:
+        idx = _feistel_bijection(ks, n_stream >> feistel_b, feistel_b)
+        up = pos_up[idx]
+        valid = idx < n_real
+    else:
+        up = pos_up
+        valid = torch.arange(
+            n_stream, dtype=torch.int32, device=pos_up.device
+        ) < n_real
+    u = up[:, 0]
+    p = up[:, 1]
+    if membership == "word":
+        rounds_row, n_overflow = _sample_rounds_word(
+            rk, u, PosBitmap(bitmap_words, wpu), n_items, n_rounds, num_neg
+        )
+    else:
+        # negative slot index f = row * num_neg + j; users_slots[f] is the
+        # user of slot f, so _sample_rounds's f = arange(N_slots) lines up
+        # with the SGD loop's (t * batch + lane) * num_neg + j
+        users_slots = torch.repeat_interleave(u, num_neg)
+        if membership == "bloom":
+            rounds, n_overflow = _sample_rounds_bloom(
+                rk,
+                users_slots,
+                PosBloom(bitmap_words, wpu),
+                PosSet(indptr, csr_items, max_degree),
+                n_items,
+                n_rounds,
+                collide_cap,
+            )
+        else:
+            rounds, n_overflow = _sample_rounds(
+                rk,
+                users_slots,
+                PosBitmap(bitmap_words, wpu),
+                n_items,
+                n_rounds,
+                collide_cap,
+            )
+        rounds_row = rounds.reshape(n_stream, num_neg)
+    enc = (u << u_shift) | valid.to(torch.int32)
+    for j in range(num_neg):
+        enc = enc | (rounds_row[:, j] << (1 + 2 * j))
+    return enc, p, n_overflow
+
+
+def _slot_tables(num_neg: int, n_rounds: int, use_word: bool, device):
+    """Per negative slot j, as (num_neg,) int32 tensors: j itself (its
+    offset in the slot index), the shift of its 2-bit round index in u_enc,
+    and for the word sampler its probe offsets by round, (num_neg,
+    n_rounds-1), else None. Made once an epoch, outside the loop."""
+    slot = torch.arange(num_neg, dtype=torch.int32, device=device)
+    delta = None
+    if use_word and n_rounds > 1:
+        delta = torch.tensor(
+            _WORD_DELTA[: num_neg * (n_rounds - 1)], dtype=torch.int32,
+            device=device,
+        ).reshape(num_neg, n_rounds - 1)
+    return slot, 1 + 2 * slot, delta
+
+
+def _decode_negatives(
+    ue: torch.Tensor,  # (B,) int32 encoded rows
+    row_idx: torch.Tensor,  # (B,) int32 positions of the rows in the stream
+    rk: torch.Tensor,
+    tables,  # _slot_tables(...)
+    n_items: int,
+    n_rounds: int,
+    use_word: bool,
+    wpu: int,
+):
+    """The negatives of encoded stream rows, rebuilt from their 2-bit round
+    indices as (negs, rounds), both (B, num_neg) int32, all slots at once:
+    slot j of row i has index f = i * num_neg + j. Must mirror
+    :func:`_sample_rounds_word` (``use_word``) or :func:`_sample_rounds`."""
+    slot, r_shift, delta = tables
+    f = (row_idx * slot.shape[0])[:, None] + slot
+    r_all = (ue[:, None] >> r_shift) & 3
+    if use_word:
+        # shared-word in-word probes for r < n_rounds-1, fresh per-slot
+        # hash for the unchecked final round
+        negs = _cand_hash(rk[n_rounds - 1], f, n_items)
+        if n_rounds > 1:
+            w_row, b0_row = _word_probe(rk[0], row_idx, wpu)
+            base = (w_row * 32)[:, None]
+            for r in range(n_rounds - 1):
+                cand_r = base + ((b0_row[:, None] + delta[:, r]) & 31)
+                negs = torch.where(r_all == r, cand_r, negs)
+    else:
+        negs = _cand_hash(rk[0], f, n_items)
+        for r in range(1, n_rounds):
+            negs = torch.where(
+                r_all == r, _cand_hash(rk[r], f, n_items), negs
+            )
+    return negs, r_all
+
+
+def _sgd_epoch_scan_grouped_body(
+    params: BPRParams,
+    u_enc: torch.Tensor,  # (S*B,) int32: user + per-slot round bits + valid
+    pos: torch.Tensor,  # (S*B,) int32 positive items
+    rk: torch.Tensor,  # (R, 3) int32 round keys (shared with presampling)
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    use_biases: bool,
+    batch_size: int,
+    num_neg: int,
+    n_items: int,
+    n_rounds: int,
+    u_shift: int,
+    item_scatter: str = "seq",
+    sampler: str = "rounds",
+    wpu: int = 0,
+) -> BPRParams:
+    """Grouped-epoch pass 2: minibatch SGD, one row per POSITIVE, in place.
+
+    Compared to the triplet stream this shares the user/positive gathers
+    and the user/positive scatters across the row's num_neg negatives.
+    Negative items are reconstructed from the 2-bit round indices via
+    _cand_hash. Update semantics are identical to num_neg consecutive
+    triplet rows of the ungrouped epoch: every gradient reads pre-batch
+    parameters (each step gathers all it reads before its first scatter);
+    duplicate-row contributions (including the num_neg-fold regularization
+    pull on u and pos) sum.
+
+    ``item_scatter``: "seq" adds the positive rows and then each slot's
+    negative rows, 1 + num_neg ``index_add_`` calls on the live table;
+    "merged" adds them in one (1 + num_neg) * B-row call; "dense" sums them
+    into a zeroed (n_items, k) accumulator and adds that densely. The three
+    agree to rounding. The loop holds no host read of a device value.
+    """
+    s = u_enc.shape[0] // batch_size
+    dev = u_enc.device
+    ue_steps = u_enc.reshape(s, batch_size)
+    p_steps = pos.reshape(s, batch_size)
+    lane = torch.arange(batch_size, dtype=torch.int32, device=dev)
+    use_word = sampler == "word"
+    tables = _slot_tables(num_neg, n_rounds, use_word, dev)
+    uf, itf, ib = params
+
+    for t in range(s):
+        ue, p = ue_steps[t], p_steps[t]
+        w = (ue & 1).to(uf.dtype)
+        u = _shift_right_logical(ue, u_shift)
+        wcol = w[:, None]
+        negs, _ = _decode_negatives(
+            ue, t * batch_size + lane, rk, tables, n_items, n_rounds,
+            use_word, wpu)
+        # every read of the step, before its first write
+        pu = uf[u]
+        qp = itf[p]
+        qn = itf[negs]  # (B, num_neg, k)
+        d = ((pu * qp).sum(1))[:, None] - (pu[:, None, :] * qn).sum(2)
+        if use_biases:
+            bp = ib[p]
+            bn = ib[negs]  # (B, num_neg)
+            d = d + bp[:, None] - bn
+        e = (1.0 / (1.0 + torch.exp(d))) * wcol  # (B, num_neg)
+        e_sum = e.sum(1)
+        # user update: sum of the num_neg triplet gradients
+        du = (e[:, :, None] * (qp[:, None, :] - qn)).sum(1) \
+            - num_neg * user_lambda * pu * wcol
+        dp = e_sum[:, None] * pu - num_neg * item_lambda * qp * wcol
+        # (B, num_neg, k): slot j's update of its negative's row
+        dn = -e[:, :, None] * pu[:, None, :] - item_lambda * qn * wcol[:, :, None]
+        if use_biases:
+            dbp = e_sum - num_neg * bias_lambda * bp * w
+            dbn = -e - bias_lambda * bn * wcol
+
+        uf.index_add_(0, u, du, alpha=lr)
+        if item_scatter in ("merged", "dense"):
+            # slot-major, as qmf_tpu concatenates: p, negatives of slot 0, ...
+            all_idx = torch.cat([p, negs.T.reshape(-1)])
+            all_upd = torch.cat([dp, dn.transpose(0, 1).reshape(-1, dn.shape[2])])
+            if item_scatter == "dense":
+                itf.add_(
+                    torch.zeros_like(itf).index_add_(0, all_idx, all_upd),
+                    alpha=lr,
+                )
+            else:
+                itf.index_add_(0, all_idx, all_upd, alpha=lr)
+            if use_biases:
+                bupd = torch.cat([dbp, dbn.T.reshape(-1)])
+                if item_scatter == "dense":
+                    ib.add_(
+                        torch.zeros_like(ib).index_add_(0, all_idx, bupd),
+                        alpha=lr,
+                    )
+                else:
+                    ib.index_add_(0, all_idx, bupd, alpha=lr)
+        else:
+            itf.index_add_(0, p, dp, alpha=lr)
+            for j in range(num_neg):
+                itf.index_add_(0, negs[:, j], dn[:, j], alpha=lr)
+            if use_biases:
+                ib.index_add_(0, p, dbp, alpha=lr)
+                for j in range(num_neg):
+                    ib.index_add_(0, negs[:, j], dbn[:, j], alpha=lr)
+    return params
+
+
+def grouped_path_reject_reason(
+    n_users: int,
+    n_items: int,
+    num_neg: int,
+    n_rounds: int,
+    batch_size: int,
+    has_bitmap: bool,
+) -> Optional[str]:
+    """Why the grouped packed epoch cannot run, or None if it can.
+
+    Callers log the reason so a configuration that silently loses the fast
+    path (e.g. a non-power-of-two batch_size) is diagnosable from the log.
+    The strings are qmf_tpu's.
+    """
+    u_shift = 1 + 2 * num_neg
+    if not has_bitmap:
+        return "no positive-membership structure (bitmap/bloom) available"
+    if num_neg < 1:
+        return f"num_negative_samples={num_neg} < 1"
+    if u_shift > 30:
+        return (
+            f"num_negative_samples={num_neg} leaves no user bits "
+            f"(needs 1 + 2*{num_neg} + user bits <= 31)"
+        )
+    if not 1 <= n_rounds <= 4:
+        return (
+            f"neg_resample_rounds={n_rounds} outside [1, 4] "
+            "(round index must fit 2 bits)"
+        )
+    if batch_size < 1:
+        return f"batch_size={batch_size} < 1"
+    if batch_size & (batch_size - 1):
+        return (
+            f"batch_size={batch_size} is not a power of two "
+            "(stream shuffle needs an m * 2^b domain)"
+        )
+    if n_users > (1 << (31 - u_shift)):
+        return (
+            f"n_users={n_users} exceeds 2^{31 - u_shift} "
+            f"(user id must fit beside {num_neg} 2-bit round indices)"
+        )
+    if n_items >= (1 << 31):
+        return f"n_items={n_items} >= 2^31"
+    return None
+
+
+def sgd_epoch_grouped_keyed(
+    params: BPRParams,
+    rk: torch.Tensor,  # (neg_rounds, 3) int32 round keys
+    ks: Optional[torch.Tensor],  # (6,) int32 Feistel keys, None = no shuffle
+    pos_up: torch.Tensor,  # (n_stream, 2) int32 padded [user, item] pair rows
+    bitmap,  # PosBitmap (exact) or PosBloom (needs pos_set for verify)
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    n_items: int,
+    n_real: int,
+    use_biases: bool,
+    num_neg: int,
+    neg_rounds: int,
+    batch_size: int,
+    collide_cap: int,
+    pos_set: Optional[PosSet] = None,
+    item_scatter: str = "seq",
+    sampler: str = "rounds",
+):
+    """One grouped training epoch on given keys: presample+encode, then the
+    grouped SGD loop.
+
+    Returns (params, n_overflow) where n_overflow is a DEVICE scalar of
+    collision-buffer overflows (callers should log when nonzero, reading it
+    at a point that already syncs).
+
+    Caller contract: pos_up is padded to a multiple of batch_size
+    (a power of two), n_real marks the real prefix length, and
+    grouped_path_reject_reason(...) returned None for this configuration.
+    """
+    u_shift = 1 + 2 * num_neg
+    feistel_b = batch_size.bit_length() - 1
+    is_bloom = isinstance(bitmap, PosBloom)
+    if is_bloom and pos_set is None:
+        raise ValueError("bloom membership requires pos_set for exact verify")
+    use_word = (
+        sampler == "word"
+        and not is_bloom
+        and word_sampler_applies(num_neg, neg_rounds)
+    )
+    enc, p, n_overflow = _sample_pack_grouped_body(
+        rk,
+        ks,
+        pos_up,
+        bitmap.words,
+        n_items=n_items,
+        n_real=n_real,
+        num_neg=num_neg,
+        n_rounds=neg_rounds,
+        wpu=bitmap.words_per_user,
+        u_shift=u_shift,
+        feistel_b=feistel_b,
+        collide_cap=collide_cap,
+        membership="word" if use_word
+        else ("bloom" if is_bloom else "bitmap"),
+        indptr=pos_set.indptr if is_bloom else None,
+        csr_items=pos_set.items if is_bloom else None,
+        max_degree=pos_set.max_degree if is_bloom else 0,
+    )
+    new_params = _sgd_epoch_scan_grouped_body(
+        params,
+        enc,
+        p,
+        rk,
+        lr,
+        user_lambda,
+        item_lambda,
+        bias_lambda,
+        use_biases=use_biases,
+        batch_size=batch_size,
+        num_neg=num_neg,
+        n_items=n_items,
+        n_rounds=neg_rounds,
+        u_shift=u_shift,
+        item_scatter=item_scatter,
+        sampler="word" if use_word else "rounds",
+        wpu=bitmap.words_per_user if use_word else 0,
+    )
+    return new_params, n_overflow
+
+
+def sgd_epoch_grouped(
+    params: BPRParams,
+    generator: torch.Generator,
+    pos_up: torch.Tensor,
+    bitmap,
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    n_items: int,
+    n_real: int,
+    use_biases: bool,
+    num_neg: int,
+    neg_rounds: int,
+    shuffle: bool,
+    batch_size: int,
+    collide_cap: int,
+    pos_set: Optional[PosSet] = None,
+    item_scatter: str = "seq",
+    sampler: str = "rounds",
+):
+    """:func:`sgd_epoch_grouped_keyed` on keys drawn from ``generator``
+    (qmf_tpu's ``sgd_epoch_grouped`` with the generator in the key's
+    place)."""
+    rk, ks = draw_grouped_keys(generator, neg_rounds, shuffle)
+    return sgd_epoch_grouped_keyed(
+        params, rk, ks, pos_up, bitmap, lr, user_lambda, item_lambda,
+        bias_lambda, n_items=n_items, n_real=n_real, use_biases=use_biases,
+        num_neg=num_neg, neg_rounds=neg_rounds, batch_size=batch_size,
+        collide_cap=collide_cap, pos_set=pos_set, item_scatter=item_scatter,
+        sampler=sampler,
+    )
+
+
+def _mix_bijection(ks: torch.Tensor, n_pow2: int, kbits: int) -> torch.Tensor:
+    """A keyed bijection on [0, 2^kbits) as pure index arithmetic, from the
+    three int32 keys ``ks`` in [0, 2^30).
+
+    Three odd-multiplier multiplications mod 2^k interleaved with
+    xor-shift-right mixes — every step is invertible mod 2^k (odd multiplier:
+    unit of Z/2^k; x ^ (x>>a): triangular linear map over GF(2)), so the
+    composition is a permutation. Quality: an LCG-grade mix, re-keyed per
+    epoch; the reference's mt19937 shuffle (BPREngine.cpp:172-174) is
+    likewise "only" pseudorandom — SGD needs decorrelation, not
+    cryptography. Bit for bit qmf_tpu's on the same keys.
+    """
+    mask = n_pow2 - 1
+    x = torch.arange(n_pow2, dtype=torch.int32, device=ks.device)
+    x = (x * ((ks[0] << 1) | 1)) & mask
+    x = x ^ ((x >> 7) ^ (x >> 13))
+    x = (x * ((ks[1] << 1) | 1)) & mask
+    x = x ^ (x >> (max(1, kbits // 2)))
+    x = (x * ((ks[2] << 1) | 1)) & mask
+    return x
+
+
+def _sample_pack_impl(
+    ks: Optional[torch.Tensor],  # (3,) int32 shuffle keys, None = no shuffle
+    cands: torch.Tensor,  # (neg_rounds, N) int32 candidate items
+    tri_ui: torch.Tensor,  # (N, 2) int32 [user, pos_item] rows, N a power of 2
+    bitmap_words: torch.Tensor,
+    n_real: int,  # rows < n_real are real triplets, >= are padding
+    wpu: int,
+):
+    """Packed legacy epoch, pass 1: shuffle, presample negatives, pack.
+
+    - The epoch shuffle is a sort-free bijective index hash applied as ONE
+      row gather of the interleaved (user, item) stream; the padding mask
+      needs no gather at all (w = idx < n_real).
+    - Negatives are parameter-independent, so sampling commutes with the
+      SGD updates; one wide bitmap-membership pass replaces per-step
+      sampling. The sampled negative is packed into the positive-item
+      stream (pos << 15 | neg).
+
+    ``ks`` and ``cands`` are the integers that qmf_tpu draws inside its
+    ``_sample_pack_impl``. Returns (u, packed, w); w is float32.
+    """
+    n = tri_ui.shape[0]
+    if ks is not None:
+        idx = _mix_bijection(ks, n, n.bit_length() - 1)
+        ui = tri_ui[idx]
+        w = (idx < n_real).to(torch.float32)
+    else:
+        ui = tri_ui
+        w = (
+            torch.arange(n, dtype=torch.int32, device=tri_ui.device) < n_real
+        ).to(torch.float32)
+    u = ui[:, 0]
+    items = ui[:, 1]
+    bitmap = PosBitmap(bitmap_words, wpu)
+    neg = torch.zeros_like(u)
+    valid = torch.zeros(u.shape, dtype=torch.bool, device=u.device)
+    neg_rounds = cands.shape[0]
+    for r in range(neg_rounds):
+        cand = cands[r]
+        cand_ok = ~_is_member_bitmap(bitmap, u, cand)
+        take = (~valid) & cand_ok
+        neg = torch.where(take, cand, neg)
+        if r == neg_rounds - 1:
+            neg = torch.where(valid | take, neg, cand)
+        valid = valid | cand_ok
+    packed = (items << _PACK_SHIFT) | neg
+    return u, packed, w
+
+
+def _sgd_epoch_scan_packed_impl(
+    params: BPRParams,
+    users_flat: torch.Tensor,
+    packed_flat: torch.Tensor,  # (S*B,) pos << 15 | neg
+    weights_flat: torch.Tensor,
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    use_biases: bool,
+    batch_size: int,
+) -> BPRParams:
+    """Packed legacy epoch, pass 2: minibatch SGD over presampled triplets."""
+    s = users_flat.shape[0] // batch_size
+    u_steps = users_flat.reshape(s, batch_size)
+    p_steps = packed_flat.reshape(s, batch_size)
+    w_steps = weights_flat.reshape(s, batch_size).to(
+        params.user_factors.dtype)
+    for t in range(s):
+        p = p_steps[t]
+        _sgd_update_body(
+            params, u_steps[t], p >> _PACK_SHIFT,
+            p & ((1 << _PACK_SHIFT) - 1), w_steps[t], lr, user_lambda,
+            item_lambda, bias_lambda, use_biases=use_biases,
+        )
+    return params
+
+
+def packed_path_reasons(n: int, n_items: int, batch_size: int,
+                         has_bitmap: bool, n_real: Optional[int]) -> list:
+    """Why :func:`sgd_epoch` cannot take the packed presampled path; empty
+    when it can (a bitmap, n_items within the packing bound, a stream
+    padded to a power of two that the batch divides, n_real known)."""
+    reasons = []
+    if not has_bitmap:
+        reasons.append("no membership bitmap (over budget?)")
+    if n_items > (1 << _PACK_SHIFT):
+        reasons.append(f"n_items={n_items} > {1 << _PACK_SHIFT}")
+    if n & (n - 1) != 0:
+        reasons.append(f"triplet stream length {n} not a power of two")
+    if n % batch_size != 0:
+        reasons.append(f"stream length {n} % batch_size {batch_size} != 0")
+    if n_real is None:
+        reasons.append("n_real not provided")
+    return reasons
+
+
+def draw_epoch(generator: torch.Generator, n: int, n_items: int,
+               neg_rounds: int, shuffle: bool, batch_size: int,
+               packed: bool):
+    """The legacy epoch's draws for a stream of ``n`` triplets, as
+    (shuffle_draw, cands): on the packed path the three keys of
+    :func:`_mix_bijection` and candidates (neg_rounds, n); on the in-step
+    path a permutation of the stream, padded to a multiple of the batch,
+    and candidates (steps, neg_rounds, batch_size). shuffle_draw is None
+    without ``shuffle``."""
+    if packed:
+        ks = _draw_keys(generator, (3,)) if shuffle else None
+        return ks, _draw_candidates(generator, (neg_rounds, n), n_items)
+    n += (-n) % batch_size
+    perm = torch.randperm(
+        n, generator=generator, device=generator.device, dtype=torch.int32
+    ) if shuffle else None
+    return perm, _draw_candidates(
+        generator, (n // batch_size, neg_rounds, batch_size), n_items)
+
+
+def sgd_epoch_drawn(
+    params: BPRParams,
+    shuffle_draw: Optional[torch.Tensor],
+    cands: torch.Tensor,
+    users_flat: torch.Tensor,
+    items_flat: torch.Tensor,
+    weights_flat: torch.Tensor,
+    pos_set: PosSet,
+    lr: float,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    n_items: int,
+    use_biases: bool,
+    batch_size: int,
+    bitmap: Optional[PosBitmap] = None,
+    n_real: Optional[int] = None,  # real (unpadded) triplet count
+) -> BPRParams:
+    """One full legacy training epoch on the draws of :func:`draw_epoch`.
+
+    When a membership bitmap exists and the item space fits the packing
+    bound (n_items <= 2**_PACK_SHIFT), negatives are presampled in one wide
+    pass and packed into the items stream. Otherwise the epoch samples
+    inside each step with the CSR binary search, and logs once which
+    precondition failed.
+    """
+    n = users_flat.shape[0]
+    reasons = packed_path_reasons(
+        n, n_items, batch_size, bitmap is not None, n_real)
+    if not reasons:
+        u, packed, w = _sample_pack_impl(
+            shuffle_draw,
+            cands,
+            torch.stack([users_flat, items_flat], dim=1),
+            bitmap.words,
+            n_real=n_real,
+            wpu=bitmap.words_per_user,
+        )
+        return _sgd_epoch_scan_packed_impl(
+            params,
+            u,
+            packed,
+            w,
+            lr,
+            user_lambda,
+            item_lambda,
+            bias_lambda,
+            use_biases=use_biases,
+            batch_size=batch_size,
+        )
+    reason_key = tuple(reasons)
+    if reason_key not in _fallback_logged:
+        _fallback_logged.add(reason_key)
+        log.info(
+            "BPR epoch falling back to in-step CSR sampling (slower than "
+            "the packed presampled path): %s", "; ".join(reasons)
+        )
+    # the in-step path still needs batch divisibility (the loop reshapes to
+    # (steps, batch_size)): pad with zero-weight no-op rows, matching the
+    # engine's own stream padding semantics
+    pad = (-n) % batch_size
+    if pad:
+        users_flat = torch.cat([users_flat, users_flat.new_zeros(pad)])
+        items_flat = torch.cat([items_flat, items_flat.new_zeros(pad)])
+        weights_flat = torch.cat([weights_flat, weights_flat.new_zeros(pad)])
+    # the in-step sampler tests membership with the CSR binary search, as
+    # qmf_tpu's in-scan sampler does; the bitmap serves the presampling
+    # passes and the eval sets
+    return _sgd_epoch_impl(
+        params,
+        shuffle_draw,
+        cands,
+        users_flat,
+        items_flat,
+        weights_flat,
+        pos_set.indptr,
+        pos_set.items,
+        lr,
+        user_lambda,
+        item_lambda,
+        bias_lambda,
+        use_biases=use_biases,
+        max_degree=pos_set.max_degree,
+        batch_size=batch_size,
+    )
+
+
+def sgd_epoch(params: BPRParams, generator: torch.Generator,
+              users_flat: torch.Tensor, items_flat: torch.Tensor,
+              weights_flat: torch.Tensor, pos_set: PosSet, lr: float,
+              user_lambda: float, item_lambda: float, bias_lambda: float,
+              n_items: int, use_biases: bool, neg_rounds: int,
+              shuffle: bool, batch_size: int,
+              bitmap: Optional[PosBitmap] = None,
+              n_real: Optional[int] = None) -> BPRParams:
+    """:func:`sgd_epoch_drawn` on draws from ``generator`` (qmf_tpu's
+    ``sgd_epoch`` with the generator in the key's place)."""
+    n = users_flat.shape[0]
+    packed = not packed_path_reasons(
+        n, n_items, batch_size, bitmap is not None, n_real)
+    shuffle_draw, cands = draw_epoch(
+        generator, n, n_items, neg_rounds, shuffle, batch_size, packed)
+    return sgd_epoch_drawn(
+        params, shuffle_draw, cands, users_flat, items_flat, weights_flat,
+        pos_set, lr, user_lambda, item_lambda, bias_lambda, n_items=n_items,
+        use_biases=use_biases, batch_size=batch_size, bitmap=bitmap,
+        n_real=n_real,
+    )
+
+
+# rows of an eval set scored at a time: bounds the three gathered (rows, k)
+# tables of eval_loss on a 50M-row eval set
+_EVAL_CHUNK = 1 << 22
+
+
+def eval_loss(
+    params: BPRParams,
+    users: torch.Tensor,
+    pos: torch.Tensor,
+    neg: torch.Tensor,
+    use_biases: bool,
+) -> torch.Tensor:
+    """Mean logistic loss log(1+exp(-d)) over a fixed triplet eval set
+    (reference BPREngine.cpp:237-239, 246-261), as a 0-d tensor."""
+    n = users.shape[0]
+    total = torch.zeros((), dtype=params.user_factors.dtype,
+                        device=users.device)
+    for s in range(0, n, _EVAL_CHUNK):
+        e = s + _EVAL_CHUNK
+        d, _, _, _ = _score_diff(
+            params, users[s:e], pos[s:e], neg[s:e], use_biases)
+        # log1p(exp(-d)) computed stably
+        total = total + torch.logaddexp(torch.zeros_like(d), -d).sum()
+    return total / n
+
+
+def sample_negatives_host(
+    rng: np.random.Generator,
+    users: np.ndarray,
+    pos_users: np.ndarray,
+    pos_items: np.ndarray,
+    n_items: int,
+) -> np.ndarray:
+    """Host-side exact rejection sampling (for fixed eval sets); a copy of
+    qmf_tpu's.
+
+    Loops until every row is valid — matching the reference's unbounded
+    rejection loop (BPREngine-inl.h:48-60). Host numpy has real int64, so
+    a flat key is safe here.
+    """
+    users = users.astype(np.int64)
+    key_set = np.unique(
+        pos_users.astype(np.int64) * np.int64(n_items)
+        + pos_items.astype(np.int64)
+    )
+    neg = rng.integers(0, n_items, size=len(users))
+    while True:
+        keys = users * n_items + neg
+        pos_idx = np.searchsorted(key_set, keys)
+        pos_idx = np.minimum(pos_idx, len(key_set) - 1)
+        bad = key_set[pos_idx] == keys if len(key_set) else np.zeros(
+            len(users), dtype=bool
+        )
+        if not bad.any():
+            return neg.astype(np.int64)
+        neg[bad] = rng.integers(0, n_items, size=int(bad.sum()))

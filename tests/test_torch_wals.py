@@ -220,6 +220,7 @@ def test_port_imports_no_jax():
         "import qmf_tpu_torch.tools.vmem_gather_micro\n"
         "import qmf_tpu_torch.ops.gather, qmf_tpu_torch.ops.bpr_ops\n"
         "import qmf_tpu_torch.models.recommend\n"
+        "import qmf_tpu_torch.models.bpr, qmf_tpu_torch.cli.bpr\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
@@ -229,7 +230,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 36
+    assert int(proc.stdout.split()[-1]) >= 38
 
 
 def test_port_imports_nothing_of_qmf_tpu():
@@ -243,6 +244,7 @@ def test_port_imports_nothing_of_qmf_tpu():
         "for m in pkgutil.walk_packages(qmf_tpu_torch.__path__, "
         "'qmf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import qmf_tpu_torch.models.bpr, qmf_tpu_torch.cli.bpr\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'qmf_tpu' "
         "or m.startswith('qmf_tpu.'))\n"
@@ -265,9 +267,10 @@ def test_port_imports_nothing_of_qmf_tpu():
     pkg = os.path.join(REPO, "qmf_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
              if f.endswith(".py")]
-    assert len(files) >= 38
+    assert len(files) >= 40
     for new in ("ops/gather.py", "ops/bpr_ops.py", "models/recommend.py",
-                "cli/recommend.py", "cli/gen_uniform.py",
+                "cli/recommend.py", "cli/gen_uniform.py", "models/bpr.py",
+                "cli/bpr.py",
                 "data/gen_uniform.py", "tools/gather_micro.py",
                 "tools/vmem_gather_micro.py"):
         assert os.path.join(pkg, new) in files
