@@ -103,6 +103,8 @@ ALPHA, LAM = 40.0, 0.05  # WALSConfig's defaults
 # Phase 7's grid: row widths, index counts, table rows.
 GATHER_KS, GATHER_RS, GATHER_ROWS = (1, 3, 30, 64, 65, 128), \
     (1, 255, 513, 1 << 20), 997
+# The gather kernels: gather_rows' variants, and "vec" with fill.
+GATHER_KERNELS = ("vec", "warp", "tile", "tile_bulk", "fill")
 # Phase 8: users a batch, list length, users held against numpy float64,
 # the score gap below which two items may swap places in f32, and the bound
 # on |f32 score - f64 score| (k = 64 products of factors below ~1).
@@ -253,9 +255,10 @@ def _median_ms(fns: dict, reps: int = 5) -> dict:
 
 def kernel_check(ks=(1, 8, 16, 30, 31, 33, 64, 65, 128),
                  batches=(1, 13, 4097)) -> dict:
-    """Phase 2: kernel vs plain on the card, then both and the library's
-    batched solve timed. ``batches`` above 128 run only up to k = 128; each
-    k also runs one block's systems + 1, and each dtype its largest k."""
+    """Phase 2: both entries of the kernel vs plain on the card, then both,
+    the plain version and the library's batched solve timed. ``batches``
+    above 128 run only up to k = 128; each k also runs one block's systems
+    + 1 of either entry, and each dtype the largest k of either entry."""
     import torch
 
     from qmf_tpu_torch import kernels
@@ -264,79 +267,125 @@ def kernel_check(ks=(1, 8, 16, 30, 31, 33, 64, 65, 128),
     t0 = time.time()
     dev = torch.device("cuda")
     dtypes = (torch.float32, torch.float64)
-    max_k = {dt: kernels.chol_solve_max_k(dt) for dt in dtypes}
-    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    # "t": cholesky_solve_t on a resident batch-last buffer; "t_copy":
+    # solve_spd(layout="t"), which makes that buffer itself
+    entries = {
+        "nat": lambda a, b: spd_solve.solve_spd(a, b),
+        "t": lambda a, b: spd_solve.cholesky_solve_t(
+            a.permute(1, 2, 0).contiguous(), b.t().contiguous()).t(),
+        "t_copy": lambda a, b: spd_solve.solve_spd(a, b, layout="t"),
+    }
+    max_k = {(dt, e): kernels.chol_solve_max_k(dt, e != "nat")
+             for dt in dtypes for e in entries}
+    worst = {(dt, e): 0.0 for dt in dtypes for e in ("nat", "t")}
     cases = 0
     for k in sorted(set(ks) | set(max_k.values())):
-        k_dtypes = [dt for dt in dtypes if k <= max_k[dt]]
+        k_runs = [key for key, most in max_k.items() if k <= most]
         k_batches = {bsz for bsz in batches if bsz <= 128 or k <= 128}
-        k_batches |= {kernels.chol_solve_limits(dt, k).systems_per_block + 1
-                      for dt in k_dtypes}
+        for dt in {dt for dt, _ in k_runs}:
+            limits = kernels.chol_solve_limits(dt, k)
+            k_batches |= {limits.systems_per_block + 1,
+                          limits.systems_per_block_t + 1}
         for bsz in sorted(k_batches):
             a64, b64 = _spd_np(bsz, k, seed=1000 * k + bsz)
-            for dtype in k_dtypes:
+            for dtype in dtypes:
                 a = torch.as_tensor(a64, dtype=dtype, device=dev)
                 b = torch.as_tensor(b64, dtype=dtype, device=dev)
                 want = spd_solve.solve_spd_reference(a, b)
-                for layout in ("nat", "t"):
-                    got = spd_solve.solve_spd(a, b, layout=layout)
+                for entry in (e for dt, e in k_runs if dt == dtype):
+                    got = entries[entry](a, b)
                     torch.cuda.synchronize()
                     err, scaled = _normwise_err(got, want)
                     tol = F32_TOL if dtype == torch.float32 else F64_TOL
                     if not scaled <= tol:
                         raise AssertionError(
-                            f"k={k} B={bsz} {dtype} {layout}: normwise "
+                            f"k={k} B={bsz} {dtype} {entry}: normwise "
                             f"error {scaled} > {tol} (max abs {err})")
-                    worst[dtype] = max(worst[dtype], err)
+                    key = (dtype, entry[:1] if entry != "nat" else entry)
+                    worst[key] = max(worst[key], err)
                     cases += 1
-    # non-SPD rows: non-finite in both versions, the others of their
-    # block untouched
-    per_block = kernels.chol_solve_limits(torch.float32, 30).systems_per_block
-    n_nan = per_block + 8
-    nan_rows = (2, 5, per_block + 6)
-    a64, b64 = _spd_np(n_nan, 30, seed=7)
-    a64[list(nan_rows)] *= -1.0
-    for dtype in (torch.float32, torch.float64):
-        a = torch.as_tensor(a64, dtype=dtype, device=dev)
-        b = torch.as_tensor(b64, dtype=dtype, device=dev)
-        for x in (spd_solve.solve_spd(a, b),
-                  spd_solve.solve_spd_reference(a, b)):
-            bad = ~torch.isfinite(x).all(dim=1)
-            if bad.tolist() != [i in nan_rows for i in range(n_nan)]:
-                raise AssertionError(f"non-SPD rows: {bad.tolist()}")
+    # non-SPD rows: non-finite in both versions and through both entries,
+    # the others of their block untouched; the last bad one in a tail block
+    n30 = kernels.chol_solve_limits(torch.float32, 30)
+    for entry, per_block in (("nat", n30.systems_per_block),
+                             ("t", n30.systems_per_block_t)):
+        n_nan = per_block + 3
+        nan_rows = (2, 5 % per_block, per_block + 1)
+        a64, b64 = _spd_np(n_nan, 30, seed=7)
+        a64[list(nan_rows)] *= -1.0
+        for dtype in dtypes:
+            a = torch.as_tensor(a64, dtype=dtype, device=dev)
+            b = torch.as_tensor(b64, dtype=dtype, device=dev)
+            for x in (entries[entry](a, b),
+                      spd_solve.solve_spd_reference(a, b)):
+                bad = ~torch.isfinite(x).all(dim=1)
+                if bad.tolist() != [i in nan_rows for i in range(n_nan)]:
+                    raise AssertionError(
+                        f"non-SPD rows ({entry}): {bad.tolist()}")
 
-    # timing at the ml20m user side's shape, on well-conditioned systems
+    # timing at the ml20m user side's shape, on well-conditioned systems:
+    # the batch-first entry on (B, k, k); the batch-last entry on a resident
+    # (k, k, B) buffer, no copy in the timed call; solve_spd(layout="t")
+    # with its copy, and that copy alone; and the batch-first entry reading
+    # the batch-last buffer through its strides, one warp a system (how the
+    # batch-last operand was read before it had its own load)
     g = torch.Generator(device=dev).manual_seed(SEED)
     m = torch.randn(ML20M_USERS, K_MAIN, K_MAIN, generator=g, device=dev)
     a = torch.baddbmm(torch.eye(K_MAIN, device=dev), m, m.transpose(1, 2),
                       alpha=1.0 / K_MAIN)
     del m
     b = torch.randn(ML20M_USERS, K_MAIN, generator=g, device=dev)
-    ms = _time_ms(lambda: spd_solve.solve_spd(a, b))
-    t_ms = _time_ms(lambda: spd_solve.solve_spd(a, b, layout="t"))
-    plain_ms = _time_ms(lambda: spd_solve.solve_spd_reference(a, b))
-    library_ms = _time_ms(lambda: torch.linalg.solve(a, b))
-    big_err, scaled = _normwise_err(spd_solve.solve_spd(a, b),
-                                    spd_solve.solve_spd_reference(a, b))
-    if not scaled <= F32_TOL:
-        raise AssertionError(f"B={ML20M_USERS} k=64 f32: err {big_err}")
-    del a, b
+    a_t, b_t = a.permute(1, 2, 0).contiguous(), b.t().contiguous()
+    x_t = torch.empty_like(b_t)
+    a_tv, b_tv = a_t.permute(2, 0, 1), b_t.t()
+    ms = _median_ms({
+        "nat": lambda: spd_solve.solve_spd(a, b),
+        "t": lambda: spd_solve.cholesky_solve_t(a_t, b_t),
+        "t_copy": lambda: spd_solve.solve_spd(a, b, layout="t"),
+        "copy": lambda: (a.permute(1, 2, 0).contiguous(),
+                         b.t().contiguous()),
+        "strided": lambda: kernels.launch_chol_solve(a_tv, b_tv, x_t.t()),
+        "plain": lambda: spd_solve.solve_spd_reference(a, b),
+        "plain_t": lambda: spd_solve.solve_spd_reference(a_tv, b_tv),
+        "library": lambda: torch.linalg.solve(a, b),
+        "library_t": lambda: torch.linalg.solve(a_tv, b_tv),
+    })
+    want = spd_solve.solve_spd_reference(a, b)
+    big_err, scaled = _normwise_err(spd_solve.solve_spd(a, b), want)
+    big_err_t, scaled_t = _normwise_err(
+        spd_solve.cholesky_solve_t(a_t, b_t).t(), want)
+    if not max(scaled, scaled_t) <= F32_TOL:
+        raise AssertionError(f"B={ML20M_USERS} k=64 f32: err {big_err} "
+                             f"batch-first, {big_err_t} batch-last")
+    del a, b, a_t, b_t, a_tv, b_tv, x_t, want
     torch.cuda.empty_cache()
     bound_ms, bound_by = _chol_bound(ML20M_USERS, K_MAIN, 4)
     limits = kernels.chol_solve_limits(torch.float32, K_MAIN)
+    f32, f64 = dtypes
     _line("2 kernel", t0, cases=cases,
-          max_abs_err_f32=worst[torch.float32],
-          max_abs_err_f64=worst[torch.float64],
-          max_k_f32=max_k[torch.float32], max_k_f64=max_k[torch.float64],
+          max_abs_err_f32=worst[f32, "nat"], max_abs_err_f64=worst[f64, "nat"],
+          max_abs_err_t_f32=worst[f32, "t"], max_abs_err_t_f64=worst[f64, "t"],
+          max_k_f32=max_k[f32, "nat"], max_k_f64=max_k[f64, "nat"],
+          max_k_t_f32=max_k[f32, "t"], max_k_t_f64=max_k[f64, "t"],
           timed_shape=f"({ML20M_USERS},{K_MAIN},{K_MAIN})f32",
           systems_per_block=limits.systems_per_block,
           system_bytes=limits.system_bytes,
-          kernel_ms=ms, kernel_t_layout_ms=t_ms, plain_ms=plain_ms,
-          linalg_solve_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-          timed_max_abs_err=big_err)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          systems_per_block_t=limits.systems_per_block_t,
+          system_bytes_t=limits.system_bytes_t,
+          kernel_ms=ms["nat"], kernel_t_entry_ms=ms["t"],
+          kernel_t_layout_ms=ms["t_copy"], batch_last_copy_ms=ms["copy"],
+          strided_batch_first_entry_ms=ms["strided"],
+          plain_ms=ms["plain"], plain_t_ms=ms["plain_t"],
+          linalg_solve_ms=ms["library"], linalg_solve_t_ms=ms["library_t"],
+          bound_ms=bound_ms, bound_by=bound_by,
+          timed_max_abs_err=big_err, timed_max_abs_err_t=big_err_t)
+    return {"ms": ms["nat"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err_f32": worst[torch.float32]}
+            "max_abs_err_f32": worst[f32, "nat"],
+            "t": {"ms": ms["t"], "plain_ms": ms["plain_t"],
+                  "library_ms": ms["library_t"],
+                  "max_abs_err": worst[f32, "t"]}}
 
 
 def _split(users, items, values, seed=SEED):
@@ -957,12 +1006,11 @@ def _gather_cases(device: str = "cuda") -> int:
         table = torch.randn(GATHER_ROWS, k, generator=g,
                             device=device).to(dtype)
         for n, idx_dtype, kernel in itertools.product(
-                GATHER_RS, (torch.int32, torch.int64),
-                ("vec", "warp", "fill")):
+                GATHER_RS, (torch.int32, torch.int64), GATHER_KERNELS):
             check(table, indices((n,), kernel, idx_dtype), kernel,
                   f"{dtype} k={k} R={n} {idx_dtype}")
             cases += 1
-    for dtype, kernel in itertools.product(dtypes, ("vec", "warp", "fill")):
+    for dtype, kernel in itertools.product(dtypes, GATHER_KERNELS):
         flat = torch.randn(1 + GATHER_ROWS * 64, generator=g,
                            device=device).to(dtype)
         view = flat[1:].view(GATHER_ROWS, 64)
@@ -978,7 +1026,7 @@ def _gather_cases(device: str = "cuda") -> int:
 
 
 def _gather_timed(table, idx) -> dict:
-    """The three kernels, their plain versions and index_select on one
+    """The kernels, their plain versions and index_select on one
     (table, idx), checked bit for bit and then timed in turns: median ms by
     name, with the two bounds as ``bound`` and ``every_row``."""
     import torch
@@ -988,15 +1036,15 @@ def _gather_timed(table, idx) -> dict:
 
     flat = idx.reshape(-1)
     fns = {
-        "vec": lambda: gather.gather_rows(table, flat, "vec"),
-        "warp": lambda: gather.gather_rows(table, flat, "warp"),
+        **{v: (lambda v=v: gather.gather_rows(table, flat, v))
+           for v in GATHER_KERNELS[:-1]},
         "fill": lambda: gather.gather_rows(table, flat, "vec", True),
         "plain": lambda: gather.gather_rows_plain(table, flat),
         "plain_fill": lambda: gather.gather_rows_plain(table, flat, True),
         "index_select": lambda: torch.index_select(table, 0, flat),
     }
     want = fns["index_select"]()
-    for name in ("vec", "warp", "fill"):
+    for name in GATHER_KERNELS:
         got = fns[name]()
         torch.cuda.synchronize()
         if not torch.equal(got, want):
@@ -1016,8 +1064,9 @@ def gather_check(engine, device: str = "cuda") -> dict:
     class."""
     import torch
 
-    from qmf_tpu_torch.ops import gather
-    from qmf_tpu_torch.tools import gather_micro, vmem_gather_micro
+    from qmf_tpu_torch.ops import gather, spd_solve
+    from qmf_tpu_torch.tools import (gather_micro, solver_micro,
+                                     vmem_gather_micro)
 
     t0 = time.time()
     dev = torch.device(device)
@@ -1026,13 +1075,15 @@ def gather_check(engine, device: str = "cuda") -> dict:
     # the probes, as their entry points run them; their tables go to stderr
     for name in gather.launches:
         gather.launches[name] = 0
+    spd_solve.launches_t = 0
     with contextlib.redirect_stdout(sys.stderr):
         micro = gather_micro.sweep(device=dev)
         vmem = vmem_gather_micro.sweep(device=dev)
-    launches = dict(gather.launches)
+        solver = solver_micro.sweep(device=dev)
+    launches = dict(gather.launches, chol_solve_t=spd_solve.launches_t)
     if not all(launches.values()):
-        raise AssertionError(f"a gather kernel was never launched by the "
-                             f"probes: {launches}")
+        raise AssertionError(f"a kernel was never launched by the probes: "
+                             f"{launches}")
     if vmem["l2_limit_after"] != 0:
         raise AssertionError(f"persisting L2 carve-out left at "
                              f"{vmem['l2_limit_after']} bytes")
@@ -1063,18 +1114,21 @@ def gather_check(engine, device: str = "cuda") -> dict:
           vmem_bound_ms=round(vmem["bound_ms"], 5),
           vmem_every_row_ms=round(vmem["every_row_ms"], 5),
           l2_limit_after=vmem["l2_limit_after"],
+          **{f"solver_B{r['batch']}": "[" + ",".join(
+              f"{k}:{v:.5f}" for k, v in r["ms"].items()) + "]"
+             for r in solver},
           timed_micro=f"({n * d},64)bf16/int32",
           **{f"micro_{k}": v for k, v in ms(
-              at_micro, ("vec", "warp", "fill", "plain",
+              at_micro, (*GATHER_KERNELS, "plain",
                          "index_select")).items()},
           timed_vmem=f"({vmem['rows']},64)bf16/int32",
           **{f"vmem_{k}": v for k, v in ms(
-              at_vmem, ("vec", "fill", "plain_fill",
+              at_vmem, ("vec", "tile", "tile_bulk", "fill", "plain_fill",
                         "index_select")).items()},
           timed_class=f"({col.shape[0]},{col.shape[1]})int64 from "
                       f"({engine.nitems},{K_MAIN})bf16",
           **{f"class_{k}": v for k, v in ms(
-              at_class, ("vec", "warp", "fill", "index_select",
+              at_class, (*GATHER_KERNELS, "index_select",
                          "bound", "every_row")).items()})
     return {"launches": launches, "micro": at_micro, "vmem": at_vmem}
 
@@ -1664,6 +1718,18 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
     }, {
+        "name": "chol_solve_t",
+        "route": "cuda",
+        "source": "qmf_tpu_torch/csrc/chol_solve.cu",
+        "replaces": "qmf_tpu/ops/pallas_solve.py:136",
+        "launches": gathers["launches"]["chol_solve_t"],
+        "max_abs_err": timing["t"]["max_abs_err"],
+        "ms": timing["t"]["ms"],
+        "plain_ms": timing["t"]["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": timing["t"]["library_ms"],
+    }, {
         "name": "build_solve",
         "route": "cuda",
         "source": source,
@@ -1689,6 +1755,8 @@ def main() -> int:
         "library_ms": None,
     }, gather_entry("vec", "benchmarks/gather_micro.py:73", "micro"),
         gather_entry("warp", "benchmarks/gather_micro.py:99", "micro"),
+        gather_entry("tile", "benchmarks/gather_micro.py:99", "micro"),
+        gather_entry("tile_bulk", "benchmarks/gather_micro.py:99", "micro"),
         gather_entry("fill", "benchmarks/vmem_gather_micro.py:72", "vmem"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,12 @@
 //
 // Replaces the TPU kernel qmf_tpu/ops/pallas_solve.py cholesky_solve_nat
 // (:154-188, body _chol_solve_kernel_nat :99-115 over _factor_solve_core
-// :53-90) and its batch-last twin cholesky_solve_t (:118-151). It computes
-// what _factor_solve_core computes; the TPU kernel's lane-major batch,
-// 16-aligned Schur slices and in-VMEM transposes existed for Mosaic and are
-// not carried over. Both TPU layouts arrive here as strides.
+// :53-90) and its batch-last twin cholesky_solve_t (:118-151, call :136). It
+// computes what _factor_solve_core computes; the TPU kernel's lane-major
+// batch, 16-aligned Schur slices and in-VMEM transposes existed for Mosaic
+// and are not carried over. The batch-first operand (B, k, k) arrives as
+// strides; the batch-last operand (k, k, B) has its own load and store,
+// below, and is never copied.
 //
 // What bounds it. At the WALS main path's shape (k = 64, f32, B = 138,493
 // systems in an ml20m user half-epoch) the kernel must read the lower
@@ -53,6 +55,25 @@
 // The library reports max k and systems per block (qmf_chol_solve_limits,
 // from shared memory and the kernel's registers), so no caller repeats this
 // layout.
+//
+// The batch-last entry (a (k, k, B), b and x (k, B)). There one system's
+// entries lie B elements apart, and a warp that loaded its own system would
+// touch one 32-byte sector per 4-byte element. But a block's S systems are
+// neighbours along B, so for every triangle entry their S values are
+// contiguous. The block therefore loads cooperatively: all 32 S threads walk
+// the triangle's entries with the system index fastest, so a warp
+// instruction reads 32 / S runs of S contiguous values (whole sectors, give
+// or take one where a run straddles: B need not be a multiple of anything),
+// and each thread drops its value into its system's triangle in shared
+// memory, which keeps the padded row layout, so the factor is the same code.
+// b comes in the same pass, into k entries behind each triangle; x goes back
+// through those entries and is stored the same way, lanes along B. One block
+// barrier after the load and one before the store are the only ones. A
+// system's region is padded so that consecutive systems start 4 banks apart:
+// the S values of one entry then land in distinct banks (without it, at
+// k = 64 in f32, in one). S is a multiple of 8 (32-byte runs in f32) where
+// 8 systems fit. The branch between the two entries is uniform over the
+// grid, so both share one kernel and one set of instantiations.
 
 #include <cuda_runtime.h>
 
@@ -91,39 +112,64 @@ __host__ __device__ inline int row_off(int r) {
   return NB * NB * (m * (m + 1) / 2) + j * NB * (m + 1);
 }
 
+// Elements of one system's region in shared memory. Batch-first: its
+// triangle. Batch-last: the triangle, k entries for b and then x, and padding
+// to a 16-byte multiple whose 32-bit words are 4 mod 32, so that consecutive
+// systems start 4 banks apart.
 template <typename T>
-size_t system_bytes(int k) {
-  return size_t(row_off(k)) * sizeof(T);
+int system_elems(int k, bool batch_last) {
+  int n = row_off(k);
+  if (!batch_last) return n;
+  constexpr int kVec = 16 / int(sizeof(T)), kWords = int(sizeof(T)) / 4;
+  n = (n + k + kVec - 1) / kVec * kVec;
+  while (n * kWords % 32 != 4) n += kVec;
+  return n;
 }
 
 template <typename T>
-int max_k() {
+size_t system_bytes(int k, bool batch_last) {
+  return size_t(system_elems<T>(k, batch_last)) * sizeof(T);
+}
+
+template <typename T>
+int max_k(bool batch_last) {
   int k = 1;
-  while (k < 32 * kMaxSlots && system_bytes<T>(k + 1) <= kMaxSmemBytes) ++k;
+  while (k < 32 * kMaxSlots &&
+         system_bytes<T>(k + 1, batch_last) <= kMaxSmemBytes)
+    ++k;
   return k;
 }
 
-// Systems per block: the count that keeps the most systems resident on an
-// SM, given its shared memory, registers (``regs`` a thread), block and
-// warp limits (the smallest such).
-template <typename T>
-int systems_per_block(int k, int regs) {
-  const size_t sys = system_bytes<T>(k);
+// Warps of ``regs`` registers a thread that one quarter of an SM holds.
+inline int warps_per_quarter(int regs) {
   const int warp_regs =
       (regs * 32 + kRegAllocUnit - 1) / kRegAllocUnit * kRegAllocUnit;
-  const int per_quarter = kRegsPerQuarter / warp_regs;
+  return kRegsPerQuarter / warp_regs;
+}
+
+// Blocks of s systems of ``sys`` bytes that one SM holds (0: none fits).
+inline int blocks_per_sm(int s, size_t sys, int regs) {
+  const int per_quarter = warps_per_quarter(regs);
+  if (s < 1 || s > kMaxSystemsPerBlock || (s + 3) / 4 > per_quarter ||
+      s * sys > kMaxSmemBytes)
+    return 0;
   int warps = 4 * per_quarter;
   warps = warps < kMaxWarpsPerSm ? warps : kMaxWarpsPerSm;
+  int blocks = int(kSmemPerSm / (s * sys + kSmemPerBlockReserved));
+  blocks = blocks < kMaxBlocksPerSm ? blocks : kMaxBlocksPerSm;
+  return blocks < warps / s ? blocks : warps / s;
+}
+
+// Systems per block: of the multiples of ``step``, the count that keeps the
+// most systems of ``sys`` bytes resident on an SM, given its shared memory,
+// registers (``regs`` a thread), block and warp limits (the smallest such);
+// 0 where no multiple fits.
+inline int systems_per_block(size_t sys, int regs, int step) {
   int best = 0, best_resident = 0;
-  for (int s = 1; s <= kMaxSystemsPerBlock && (s + 3) / 4 <= per_quarter;
-       ++s) {
-    const size_t block = s * sys;
-    if (block > kMaxSmemBytes) break;
-    int blocks = int(kSmemPerSm / (block + kSmemPerBlockReserved));
-    blocks = blocks < kMaxBlocksPerSm ? blocks : kMaxBlocksPerSm;
-    blocks = blocks < warps / s ? blocks : warps / s;
-    if (blocks * s > best_resident) {
-      best_resident = blocks * s;
+  for (int s = step; s <= kMaxSystemsPerBlock; s += step) {
+    const int resident = s * blocks_per_sm(s, sys, regs);
+    if (resident > best_resident) {
+      best_resident = resident;
       best = s;
     }
   }
@@ -174,43 +220,21 @@ __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// One warp per system, blockDim = (32, systems per block). Lane l holds the
-// entries of rows i = l + 32 t, t < KT (KT = ceil(k / 32)). Pivots are
-// walked in blocks of 32, tb, unrolled, so that every register array index
-// is known at compile time (a run-time index would put the array in local
-// memory).
+// One warp's system: factors the triangle at s in place and turns z (b on
+// entry) into x. Lane l holds the entries of rows i = l + 32 t, t < KT
+// (KT = ceil(k / 32)). Pivots are walked in blocks of 32, tb, unrolled, so
+// that every register array index is known at compile time (a run-time index
+// would put the array in local memory).
 template <typename T, int KT>
-__global__ void chol_solve_kernel(const T* __restrict__ a,
-                                  const T* __restrict__ b, T* __restrict__ x,
-                                  int64_t batch, int k, int64_t sa_b,
-                                  int64_t sa_r, int64_t sa_c, int64_t sb_b,
-                                  int64_t sb_r, int64_t sx_b, int64_t sx_r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x;
-  const int64_t sys = int64_t(blockIdx.x) * blockDim.y + threadIdx.y;
-  if (sys >= batch) return;
-  T* s = reinterpret_cast<T*>(smem_raw) + threadIdx.y * row_off(k);
-
-  // Load: the lower triangle row by row, lanes over columns, every copy in
-  // flight at once (cp.async); b into z meanwhile.
-  const T* a_row = a + sys * sa_b;
-  T* s_row = s;
-  for (int r = 0; r < k; ++r) {
-    for (int c = lane; c <= r; c += 32) cp_async(s_row + c, a_row + c * sa_c);
-    a_row += sa_r;
-    s_row += NB * (r / NB + 1);
-  }
-  T z[KT], inv[KT];
+__device__ __forceinline__ void warp_factor_solve(T* s, T (&z)[KT], int k,
+                                                  int lane) {
+  T inv[KT];
   int off[KT];  // row_off of this lane's rows
 #pragma unroll
   for (int t = 0; t < KT; ++t) {
-    const int i = lane + 32 * t;
-    z[t] = i < k ? b[sys * sb_b + i * sb_r] : T(0);
     inv[t] = T(0);
-    off[t] = row_off(i);
+    off[t] = row_off(lane + 32 * t);
   }
-  cp_async_wait_all();
-  __syncwarp();
 
   // Factor, PW pivots per panel; pivots p0 .. p0 + PW - 1 lie in slot tb.
 #pragma unroll
@@ -344,17 +368,140 @@ __global__ void chol_solve_kernel(const T* __restrict__ a,
       }
     }
   }
+}  // warp_factor_solve
+
+// The batch-last entry's walk over what a block loads and stores: thread
+// tid of the block's 32 S owns system tid % S of the block and starts at
+// item tid / S, then takes every 32nd item. The triangle's items are its
+// entries with rows r and k - 1 - r paired, k + 1 entries a pair, so that
+// the walk needs no square root.
+struct BlockWalk {
+  int sys;   // this thread's system within the block
+  int item;  // its first item, < 32
+  __device__ BlockWalk(int per_block, int lane, int warp)
+      : sys((warp * 32 + lane) % per_block),
+        item((warp * 32 + lane) / per_block) {}
+};
+
+// Loads the block's triangles and right-hand sides (system index fastest
+// over the threads), each value into its system's region: the triangle by
+// padded rows, b behind it. The copies are in flight until the caller's
+// cp_async_wait_all.
+template <typename T>
+__device__ inline void block_load(const BlockWalk w, T* region, const T* a,
+                                  const T* b, int k, int64_t sa_r,
+                                  int64_t sa_c, int64_t sb_r) {
+  const int pairs = (k + 1) / 2;
+  int pair = 0, j = w.item;
+  while (j > k) {
+    j -= k + 1;
+    ++pair;
+  }
+  while (pair < pairs) {
+    const bool first = j <= pair;
+    const int r = first ? pair : k - 1 - pair;
+    const int c = first ? j : j - pair - 1;
+    // the middle row of an odd k is its own partner: taken once
+    if (first || r != pair) cp_async(region + row_off(r) + c,
+                                     a + r * sa_r + c * sa_c);
+    j += 32;
+    while (j > k) {
+      j -= k + 1;
+      ++pair;
+    }
+  }
+  T* z = region + row_off(k);
+  for (int i = w.item; i < k; i += 32) cp_async(z + i, b + i * sb_r);
+}
+
+// blockDim = (32, systems per block); warp y of block x owns system
+// x blockDim.y + y. ``stride`` is a system's region in shared memory, in
+// elements. batch_last = 0: each warp loads its own system through the
+// strides and stores its own x; no block barrier. batch_last = 1: the
+// block loads and stores together (block_load), and the tail block's warps
+// without a system stay for both barriers.
+template <typename T, int KT>
+__global__ void chol_solve_kernel(const T* __restrict__ a,
+                                  const T* __restrict__ b, T* __restrict__ x,
+                                  int64_t batch, int k, int stride,
+                                  int batch_last, int64_t sa_b, int64_t sa_r,
+                                  int64_t sa_c, int64_t sb_b, int64_t sb_r,
+                                  int64_t sx_b, int64_t sx_r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x;
+  const int64_t sys0 = int64_t(blockIdx.x) * blockDim.y;
+  const int64_t sys = sys0 + threadIdx.y;
+  const bool live = sys < batch;
+  T* s = reinterpret_cast<T*>(smem_raw) + threadIdx.y * stride;
+  T z[KT];
+
+  if (batch_last) {
+    const BlockWalk w(blockDim.y, lane, threadIdx.y);
+    const int64_t mine = sys0 + w.sys;
+    if (mine < batch)
+      block_load(w, reinterpret_cast<T*>(smem_raw) + w.sys * stride,
+                 a + mine * sa_b, b + mine * sb_b, k, sa_r, sa_c, sb_r);
+    cp_async_wait_all();
+    __syncthreads();
 #pragma unroll
-  for (int t = 0; t < KT; ++t) {
-    const int i = lane + 32 * t;
-    if (i < k) x[sys * sx_b + i * sx_r] = z[t];
+    for (int t = 0; t < KT; ++t) {
+      const int i = lane + 32 * t;
+      z[t] = i < k ? s[row_off(k) + i] : T(0);
+    }
+  } else {
+    if (!live) return;
+    // Load: the lower triangle row by row, lanes over columns, every copy
+    // in flight at once (cp.async); b into z meanwhile.
+    const T* a_row = a + sys * sa_b;
+    T* s_row = s;
+    for (int r = 0; r < k; ++r) {
+      for (int c = lane; c <= r; c += 32)
+        cp_async(s_row + c, a_row + c * sa_c);
+      a_row += sa_r;
+      s_row += NB * (r / NB + 1);
+    }
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int i = lane + 32 * t;
+      z[t] = i < k ? b[sys * sb_b + i * sb_r] : T(0);
+    }
+    cp_async_wait_all();
+    __syncwarp();
+  }
+
+  if (live) warp_factor_solve<T, KT>(s, z, k, lane);
+
+  if (batch_last) {
+    // x through the entries b came in by, then out with lanes along B
+    if (live) {
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const int i = lane + 32 * t;
+        if (i < k) s[row_off(k) + i] = z[t];
+      }
+    }
+    __syncthreads();
+    const BlockWalk w(blockDim.y, lane, threadIdx.y);
+    const int64_t mine = sys0 + w.sys;
+    if (mine < batch) {
+      const T* from =
+          reinterpret_cast<T*>(smem_raw) + w.sys * stride + row_off(k);
+      for (int i = w.item; i < k; i += 32)
+        x[mine * sx_b + i * sx_r] = from[i];
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int i = lane + 32 * t;
+      if (i < k) x[sys * sx_b + i * sx_r] = z[t];
+    }
   }
 }
 
 template <typename T>
-using KernelFn = void (*)(const T*, const T*, T*, int64_t, int, int64_t,
+using KernelFn = void (*)(const T*, const T*, T*, int64_t, int, int, int,
                           int64_t, int64_t, int64_t, int64_t, int64_t,
-                          int64_t);
+                          int64_t, int64_t);
 
 template <typename T, int... KTs>
 KernelFn<T> pick_kernel(int kt, std::integer_sequence<int, KTs...>) {
@@ -364,34 +511,42 @@ KernelFn<T> pick_kernel(int kt, std::integer_sequence<int, KTs...>) {
 }
 
 // The kernel for k (1 <= k <= max_k) and its systems per block, from the
-// registers the compiler gave it.
+// registers the compiler gave it. The batch-last entry takes a multiple of 8
+// where one fits, or ``systems`` (> 0) where the caller names the count.
 template <typename T>
-cudaError_t plan(int k, KernelFn<T>* fn, int* per_block) {
+cudaError_t plan(int k, bool batch_last, int systems, KernelFn<T>* fn,
+                 int* per_block) {
   *fn = pick_kernel<T>((k + 31) / 32,
                        std::make_integer_sequence<int, kMaxSlots>{});
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, *fn);
   if (err != cudaSuccess) return err;
-  *per_block = systems_per_block<T>(k, attr.numRegs);
+  const size_t sys = system_bytes<T>(k, batch_last);
+  if (systems > 0) {
+    *per_block = blocks_per_sm(systems, sys, attr.numRegs) ? systems : 0;
+    return *per_block ? cudaSuccess : cudaErrorInvalidValue;
+  }
+  *per_block = batch_last ? systems_per_block(sys, attr.numRegs, 8) : 0;
+  if (*per_block == 0) *per_block = systems_per_block(sys, attr.numRegs, 1);
   return *per_block > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 template <typename T>
 int launch(const void* a, const void* b, void* x, long long batch, int k,
-           long long sa_b, long long sa_r, long long sa_c, long long sb_b,
-           long long sb_r, long long sx_b, long long sx_r, int device,
-           void* stream) {
+           bool batch_last, int systems, long long sa_b, long long sa_r,
+           long long sa_c, long long sb_b, long long sb_r, long long sx_b,
+           long long sx_r, int device, void* stream) {
   if (batch <= 0) return int(cudaSuccess);
-  if (k <= 0 || k > max_k<T>()) return int(cudaErrorInvalidValue);
+  if (k <= 0 || k > max_k<T>(batch_last)) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   KernelFn<T> fn;
   int per_block;
-  err = plan<T>(k, &fn, &per_block);
+  err = plan<T>(k, batch_last, systems, &fn, &per_block);
   if (err != cudaSuccess) return int(err);
   const int64_t blocks = (batch + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  const size_t smem = per_block * system_bytes<T>(k);
+  const size_t smem = per_block * system_bytes<T>(k, batch_last);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(smem));
@@ -401,51 +556,81 @@ int launch(const void* a, const void* b, void* x, long long batch, int k,
   fn<<<dim3(unsigned(blocks)), block, smem,
        reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(x),
-      batch, k, sa_b, sa_r, sa_c, sb_b, sb_r, sx_b, sx_r);
+      batch, k, system_elems<T>(k, batch_last), int(batch_last), sa_b, sa_r,
+      sa_c, sb_b, sb_r, sx_b, sx_r);
   return int(cudaGetLastError());
+}
+
+// Fills out[0..2] (max k, systems per block, bytes per system) for one
+// entry of one dtype; see qmf_chol_solve_limits.
+template <typename T>
+cudaError_t limits(int k, bool batch_last, int* out) {
+  out[0] = max_k<T>(batch_last);
+  out[1] = out[2] = 0;
+  if (k < 1 || k > out[0]) return cudaSuccess;
+  KernelFn<T> fn;
+  out[2] = int(system_bytes<T>(k, batch_last));
+  return plan<T>(k, batch_last, 0, &fn, &out[1]);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Strides are in elements. Returns the cudaError_t of the launch.
+// Batch-first or any strides: a (B, k, k), b and x (B, k), each warp loading
+// its own system. Strides are in elements. Returns the cudaError_t of the
+// launch.
 int qmf_chol_solve_f32(const void* a, const void* b, void* x, long long batch,
                        int k, long long sa_b, long long sa_r, long long sa_c,
                        long long sb_b, long long sb_r, long long sx_b,
                        long long sx_r, int device, void* stream) {
-  return launch<float>(a, b, x, batch, k, sa_b, sa_r, sa_c, sb_b, sb_r, sx_b,
-                       sx_r, device, stream);
+  return launch<float>(a, b, x, batch, k, false, 0, sa_b, sa_r, sa_c, sb_b,
+                       sb_r, sx_b, sx_r, device, stream);
 }
 
 int qmf_chol_solve_f64(const void* a, const void* b, void* x, long long batch,
                        int k, long long sa_b, long long sa_r, long long sa_c,
                        long long sb_b, long long sb_r, long long sx_b,
                        long long sx_r, int device, void* stream) {
-  return launch<double>(a, b, x, batch, k, sa_b, sa_r, sa_c, sb_b, sb_r, sx_b,
-                        sx_r, device, stream);
+  return launch<double>(a, b, x, batch, k, false, 0, sa_b, sa_r, sa_c, sb_b,
+                        sb_r, sx_b, sx_r, device, stream);
 }
 
-// out[0] = the largest k for the dtype (0 f32, 1 f64); out[1] = systems per
-// block at k as a launch on the current device uses it (0 where k is out of
-// range); out[2] = shared bytes per system. Returns a cudaError_t.
+// Batch-last: the same systems and the same strides' meaning, loaded and
+// stored by the block together, which is what a batch stride of 1 (a
+// (k, k, B), b and x (k, B)) wants. ``systems`` > 0 names the systems per
+// block (cudaErrorInvalidValue where that count does not fit), 0 leaves it
+// to the library.
+int qmf_chol_solve_t_f32(const void* a, const void* b, void* x,
+                         long long batch, int k, long long sa_b,
+                         long long sa_r, long long sa_c, long long sb_b,
+                         long long sb_r, long long sx_b, long long sx_r,
+                         int systems, int device, void* stream) {
+  return launch<float>(a, b, x, batch, k, true, systems, sa_b, sa_r, sa_c,
+                       sb_b, sb_r, sx_b, sx_r, device, stream);
+}
+
+int qmf_chol_solve_t_f64(const void* a, const void* b, void* x,
+                         long long batch, int k, long long sa_b,
+                         long long sa_r, long long sa_c, long long sb_b,
+                         long long sb_r, long long sx_b, long long sx_r,
+                         int systems, int device, void* stream) {
+  return launch<double>(a, b, x, batch, k, true, systems, sa_b, sa_r, sa_c,
+                        sb_b, sb_r, sx_b, sx_r, device, stream);
+}
+
+// For the dtype (0 f32, 1 f64), out[0..2] of the batch-first entry and
+// out[3..5] of the batch-last one: the largest k; the systems per block at k
+// as a launch on the current device chooses it (0 where k is out of range);
+// the shared bytes per system at k. Returns a cudaError_t.
 int qmf_chol_solve_limits(int dtype, int k, int* out) {
-  const bool f64 = dtype != 0;
-  const int kmax = f64 ? max_k<double>() : max_k<float>();
-  out[0] = kmax;
-  out[1] = out[2] = 0;
-  if (k < 1 || k > kmax) return int(cudaSuccess);
-  cudaError_t err;
-  if (f64) {
-    KernelFn<double> fn;
-    err = plan<double>(k, &fn, &out[1]);
-    out[2] = int(system_bytes<double>(k));
-  } else {
-    KernelFn<float> fn;
-    err = plan<float>(k, &fn, &out[1]);
-    out[2] = int(system_bytes<float>(k));
+  for (int entry = 0; entry < 2; ++entry) {
+    const cudaError_t err = dtype != 0
+                                ? limits<double>(k, entry, out + 3 * entry)
+                                : limits<float>(k, entry, out + 3 * entry);
+    if (err != cudaSuccess) return int(err);
   }
-  return int(err);
+  return int(cudaSuccess);
 }
 
 const char* qmf_cuda_error_string(int err) {

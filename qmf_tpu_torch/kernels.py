@@ -133,6 +133,11 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [vp, vp, vp, ll, ci, ll, ll, ll, ll, ll, ll, ll,
                            ci, vp]
             fn.restype = ci
+        for name in ("qmf_chol_solve_t_f32", "qmf_chol_solve_t_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, vp, ll, ci, ll, ll, ll, ll, ll, ll, ll,
+                           ci, ci, vp]
+            fn.restype = ci
         for name in ("qmf_build_solve_f32", "qmf_build_solve_bf16"):
             fn = getattr(lib, name)
             fn.argtypes = [vp] * 13 + [ll] + [ci] * 6 + [vp]
@@ -141,7 +146,7 @@ def load() -> ctypes.CDLL:
         lib.qmf_build_solve_limits.restype = None
         lib.qmf_chol_solve_limits.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.qmf_chol_solve_limits.restype = ci
-        lib.qmf_gather.argtypes = [vp, vp, vp, ll, ll, ll] + [ci] * 6 + [
+        lib.qmf_gather.argtypes = [vp, vp, vp, ll, ll, ll] + [ci] * 8 + [
             vp, ctypes.POINTER(ll)]
         lib.qmf_gather.restype = ci
         lib.qmf_l2_reset.argtypes = [ci, vp, ctypes.POINTER(ll)]
@@ -157,11 +162,15 @@ class CholSolveLimits(NamedTuple):
     (one system's triangle in one block's shared memory), and at this k the
     systems each block holds (from shared memory and the kernel's
     registers) and one system's shared bytes (0 where k is above the
-    largest)."""
+    largest). Then the same three for the batch-last entry, whose systems
+    also keep b and x in shared memory, padded apart."""
 
     max_k: int
     systems_per_block: int
     system_bytes: int
+    max_k_t: int
+    systems_per_block_t: int
+    system_bytes_t: int
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,9 +187,11 @@ def chol_solve_limits(dtype: torch.dtype, k: int = 1) -> CholSolveLimits:
     return CholSolveLimits(*out)
 
 
-def chol_solve_max_k(dtype: torch.dtype) -> int:
-    """Largest k the factor+solve kernel takes for ``dtype``."""
-    return chol_solve_limits(dtype).max_k
+def chol_solve_max_k(dtype: torch.dtype, batch_last: bool = False) -> int:
+    """Largest k the factor+solve kernel takes for ``dtype``, through its
+    batch-first or its batch-last entry."""
+    limits = chol_solve_limits(dtype)
+    return limits.max_k_t if batch_last else limits.max_k
 
 
 def launch_chol_solve(a: torch.Tensor, b: torch.Tensor,
@@ -188,8 +199,8 @@ def launch_chol_solve(a: torch.Tensor, b: torch.Tensor,
     """Launch csrc/chol_solve.cu on the current stream: x[i] = A[i]^-1 b[i].
 
     a (B, k, k), b (B, k) and x (B, k) are CUDA tensors of one float dtype
-    with any strides (a batch-last buffer arrives as a permuted view). Does
-    not synchronise. Raises on a refused launch.
+    with any strides; each warp loads its own system, which suits a batch
+    stride of k*k. Does not synchronise. Raises on a refused launch.
     """
     lib = load()
     fn = {torch.float32: lib.qmf_chol_solve_f32,
@@ -205,6 +216,39 @@ def launch_chol_solve(a: torch.Tensor, b: torch.Tensor,
         msg = lib.qmf_cuda_error_string(err).decode()
         raise RuntimeError(
             f"chol_solve launch failed (B={bsz}, k={k}, {a.dtype}): "
+            f"CUDA error {err}: {msg}"
+        )
+
+
+def launch_chol_solve_t(a_t: torch.Tensor, b_t: torch.Tensor,
+                        x_t: torch.Tensor, systems: int = 0) -> None:
+    """Launch csrc/chol_solve.cu's batch-last entry on the current stream:
+    x_t[:, i] = A_t[:, :, i]^-1 b_t[:, i].
+
+    a_t (k, k, B), b_t (k, B) and x_t (k, B) are CUDA tensors of one float
+    dtype, read and written where they lie: a block loads its systems
+    together, neighbours along B side by side, which suits a batch stride
+    of 1 (other strides are still right). ``systems`` > 0 names the systems
+    per block, for measuring; 0 leaves the count to the library. Does not
+    synchronise. Raises on a refused launch.
+    """
+    lib = load()
+    fn = {torch.float32: lib.qmf_chol_solve_t_f32,
+          torch.float64: lib.qmf_chol_solve_t_f64}[a_t.dtype]
+    k, bsz = b_t.shape
+    sa_r, sa_c, sa_b = a_t.stride()
+    (sb_r, sb_b), (sx_r, sx_b) = b_t.stride(), x_t.stride()
+    err = fn(
+        a_t.data_ptr(), b_t.data_ptr(), x_t.data_ptr(), bsz, k,
+        sa_b, sa_r, sa_c, sb_b, sb_r, sx_b, sx_r, systems,
+        a_t.device.index if a_t.device.index is not None else 0,
+        torch.cuda.current_stream(a_t.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.qmf_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"chol_solve batch-last launch failed (B={bsz}, k={k}, "
+            f"{a_t.dtype}, systems per block {systems or 'auto'}): "
             f"CUDA error {err}: {msg}"
         )
 
@@ -291,18 +335,24 @@ def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
         )
 
 
-GATHER_VARIANTS = ("vec", "warp")
+# The access shapes of csrc/gather.cu, by the number qmf_gather knows them
+# by. "tile" reads its tiles with 16-byte cp.async, "tile_bulk" with one
+# bulk copy a row: the two candidates of the tile kernel, both kept to be
+# timed; "tile" is the faster.
+GATHER_VARIANTS = {"vec": 0, "warp": 1, "tile_bulk": 2, "tile": 3}
 
 
 def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
-                  variant: str, fill: bool, l2_window: bool,
-                  width: int) -> None:
+                  variant: str, fill: bool, l2_window: bool, width: int,
+                  tile_rows: int = 0, tile_stages: int = 0) -> None:
     """Launch csrc/gather.cu on the current stream: out[r] = table[idx[r]].
 
     table (rows, k) and out (R, k) contiguous CUDA tensors of one dtype, idx
     (R,) int32 or int64 on the same device. ``width`` is the vector width in
     bytes (16, 8, 4 or 2) and must divide a row's bytes and both base
-    pointers. ``fill`` (variant "vec" only) gives zero rows for indices that
+    pointers. The tile variants also take their plan: ``tile_rows`` rows a
+    tile and ``tile_stages`` tiles a warp. ``fill`` (variant "vec" only)
+    gives zero rows for indices that
     are out of range after one wrap of the negatives. ``l2_window`` pins the
     table in L2 for this launch; :func:`reset_l2_persistence` gives the
     persisting carve-out back afterwards. Does not synchronise. Raises on a
@@ -315,7 +365,8 @@ def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
     err = lib.qmf_gather(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), out.shape[0],
         table.shape[0], row_bytes, width, int(idx.dtype == torch.int64),
-        GATHER_VARIANTS.index(variant), int(fill), int(l2_window),
+        GATHER_VARIANTS[variant], int(fill), tile_rows, tile_stages,
+        int(l2_window),
         table.device.index if table.device.index is not None else 0,
         torch.cuda.current_stream(table.device).cuda_stream,
         ctypes.byref(granted),
@@ -328,6 +379,7 @@ def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
         raise RuntimeError(
             f"gather launch failed (R={out.shape[0]}, rows={table.shape[0]}, "
             f"row bytes {row_bytes}, width {width}, {idx.dtype}, {variant}"
+            f"{f', {tile_rows} rows x {tile_stages} tiles' if tile_rows else ''}"
             f"{', fill' if fill else ''}{window}): CUDA error {err}: {msg}"
         )
 

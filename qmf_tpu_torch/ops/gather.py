@@ -10,33 +10,40 @@ every grid step; its docstring and its own check state the gather).
 
 On a CUDA tensor :func:`gather_rows` launches ``csrc/gather.cu`` (see
 qmf_tpu_torch/kernels.py) and raises if it cannot; on a CPU tensor it runs
-:func:`gather_rows_plain`. The variants are two access shapes of the same
-copy: ``"vec"`` (a group of lanes per row, the widest vectors that fit) and
-``"warp"`` (a warp per row). ``fill`` adds ``jnp.take``'s ``fill_value=0``
+:func:`gather_rows_plain`. The variants are access shapes of the same
+copy: ``"vec"`` (a group of lanes per row, the widest vectors that fit),
+``"warp"`` (a warp per row) and ``"tile"`` (a warp per tile of consecutive
+output rows, staged through shared memory by asynchronous copies and
+written by one bulk store; ``"tile_bulk"`` is the same with another way to
+read, see :func:`tile_plan`). ``fill`` adds ``jnp.take``'s ``fill_value=0``
 rule to ``"vec"``; without it an out-of-range index is the caller's error
 and nothing checks it on the device.
 
-``launches`` counts kernel launches by kernel (``"vec"``, ``"warp"``,
-``"fill"``); CPU calls and empty index arrays do not count.
+``launches`` counts kernel launches by kernel (the variants, and ``"fill"``);
+CPU calls and empty index arrays do not count.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from qmf_tpu_torch import kernels
 
-launches = {"vec": 0, "warp": 0, "fill": 0}
+launches = {**dict.fromkeys(kernels.GATHER_VARIANTS, 0), "fill": 0}
 
 _TABLE_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 _WIDTHS = (16, 8, 4, 2)  # vector bytes, widest first
+_TILE_BYTES = 4096  # what a tile aims at: 32 rows of 128 bytes
+_TILE_MAX_ROWS = 32  # lane t of the warp holds the tile's index t
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor, variant: str,
            fill: bool) -> None:
     if variant not in kernels.GATHER_VARIANTS:
         raise ValueError(f"unknown variant {variant!r} (expected one of "
-                         f"{kernels.GATHER_VARIANTS})")
+                         f"{tuple(kernels.GATHER_VARIANTS)})")
     if fill and variant != "vec":
         raise ValueError('fill runs with variant "vec" only')
     if table.dim() != 2 or table.shape[0] < 1 or table.shape[1] < 1:
@@ -65,6 +72,47 @@ def vector_bytes(row_bytes: int, table_ptr: int, out_ptr: int,
     if variant == "warp":
         return next((w for w in legal if 32 * w <= row_bytes), legal[-1])
     return legal[0]
+
+
+class TilePlan(NamedTuple):
+    """How a ``"tile"`` launch moves its rows: ``rows`` consecutive output
+    rows a tile, ``stages`` tiles a warp in shared memory, copies of
+    ``width`` bytes, and how a tile is read and written (``read``)."""
+
+    rows: int
+    stages: int
+    width: int
+    read: str
+
+
+def tile_plan(row_bytes: int, table_ptr: int, out_ptr: int,
+              variant: str = "tile") -> TilePlan:
+    """The plan of a ``"tile"`` or ``"tile_bulk"`` launch, by shape.
+
+    A tile is as many rows as come to 4096 bytes, at least 1 and at most 32.
+    Where a row's bytes and both base pointers are multiples of 16, a warp
+    keeps two tiles: ``"tile"`` reads a tile's rows with 16-byte ``cp.async``
+    (read ``"cp16"``), ``"tile_bulk"`` with one bulk copy a row (``"bulk"``),
+    and either writes the tile with one bulk store. Bulk copies take only
+    16-byte sizes and addresses, so every other shape (k = 1, 3, 30 or 65 in
+    bf16; a table view that starts one element into its storage) gets one
+    tile a warp, lane copies of the widest width that fits into the tile and
+    lane stores out of it (``"lanes"``): the same kernel, dispatched by
+    shape. Raises where the tiles of one warp pass a block's shared memory.
+    """
+    width = vector_bytes(row_bytes, table_ptr, out_ptr)
+    rows = max(1, min(_TILE_MAX_ROWS, _TILE_BYTES // row_bytes))
+    if width == 16:
+        plan = TilePlan(rows, 2, 16, "bulk" if variant == "tile_bulk"
+                        else "cp16")
+    else:
+        plan = TilePlan(rows, 1, width, "lanes")
+    if plan.stages * plan.rows * row_bytes > kernels.MAX_SMEM_BYTES:
+        raise ValueError(
+            f"rows of {row_bytes} bytes are too long for the tile variants: "
+            f"{plan.stages} tiles of them pass {kernels.MAX_SMEM_BYTES} "
+            f"bytes of shared memory")
+    return plan
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -106,9 +154,16 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, variant: str = "vec",
     out = torch.empty((flat.shape[0], k), dtype=table.dtype,
                       device=table.device)
     if flat.shape[0]:
-        width = vector_bytes(k * table.element_size(), table.data_ptr(),
-                             out.data_ptr(), variant)
-        kernels.launch_gather(table, flat, out, variant, fill, l2_window,
-                              width)
+        row_bytes = k * table.element_size()
+        if variant in ("tile", "tile_bulk"):
+            plan = tile_plan(row_bytes, table.data_ptr(), out.data_ptr(),
+                             variant)
+            kernels.launch_gather(table, flat, out, variant, fill, l2_window,
+                                  plan.width, plan.rows, plan.stages)
+        else:
+            width = vector_bytes(row_bytes, table.data_ptr(), out.data_ptr(),
+                                 variant)
+            kernels.launch_gather(table, flat, out, variant, fill, l2_window,
+                                  width)
         launches["fill" if fill else variant] += 1
     return out.reshape(*idx.shape, k)

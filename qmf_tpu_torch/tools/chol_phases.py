@@ -1,6 +1,7 @@
 """Where ``csrc/chol_solve.cu`` spends its time, on a CUDA card.
 
     python -m qmf_tpu_torch.tools.chol_phases [--batch 138493] [--k 64]
+        [--layout nat|t] [--systems S ...]
 
 Builds copies of the kernel's source with one phase cut out, each with nvcc
 into its own library under the kernels' build directory, and times them
@@ -14,7 +15,11 @@ turns (CUDA events, median of 7 rounds):
 
 A cut copy computes wrong answers: its time only says what the phase it
 lacks costs (``full`` minus ``no_trailing`` is the trailing update's time).
-Prints the card's name and power limit, then one line per variant.
+``--layout t`` times the batch-last entry on a resident (k, k, B) buffer
+(its block-wide load and store are then what ``load_store`` times), once
+for each count of systems a block given with ``--systems`` (0, the default:
+the library's choice). Prints the card's name and power limit, then one line
+per variant and count.
 """
 
 from __future__ import annotations
@@ -31,14 +36,13 @@ from qmf_tpu_torch import kernels
 
 _SOURCE = os.path.join(os.path.dirname(kernels.__file__), "csrc",
                        "chol_solve.cu")
-_X_STORE = ("#pragma unroll\n  for (int t = 0; t < KT; ++t) {\n"
-            "    const int i = lane + 32 * t;\n    if (i < k) x[")
+_CORE_END = "}  // warp_factor_solve"
 # variant -> (first line cut, first line kept after the cut)
 CUTS = {
     "no_trailing": ("      // Trailing update,",
                     "      __syncwarp();\n    }\n  }\n\n  // Forward"),
-    "no_subst": ("  // Forward: L z = b", _X_STORE),
-    "load_store": ("  // Factor, PW pivots per panel", _X_STORE),
+    "no_subst": ("  // Forward: L z = b", _CORE_END),
+    "load_store": ("  // Factor, PW pivots per panel", _CORE_END),
 }
 
 
@@ -90,6 +94,9 @@ def build(k: int) -> dict:
         lib.qmf_chol_solve_f32.argtypes = [vp, vp, vp, ll, ci, ll, ll, ll,
                                            ll, ll, ll, ll, ci, vp]
         lib.qmf_chol_solve_f32.restype = ci
+        lib.qmf_chol_solve_t_f32.argtypes = [vp, vp, vp, ll, ci, ll, ll, ll,
+                                             ll, ll, ll, ll, ci, ci, vp]
+        lib.qmf_chol_solve_t_f32.restype = ci
         libs[name] = lib
     return libs
 
@@ -99,6 +106,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=138_493)
     ap.add_argument("--k", type=int, default=64)
     ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--layout", choices=("nat", "t"), default="nat")
+    ap.add_argument("--systems", type=int, nargs="*", default=[0],
+                    help="systems a block (--layout t; 0: the library's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chol_phases needs a CUDA device")
@@ -116,31 +126,41 @@ def main(argv=None) -> int:
                       alpha=1.0 / k)
     del m
     b = torch.randn(bsz, k, generator=g, device=dev)
+    if args.layout == "t":  # the resident batch-last buffers, viewed (B, ..)
+        a = a.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+        b = b.t().contiguous().t()
     x = torch.empty_like(b)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def launch(lib):
-        err = lib.qmf_chol_solve_f32(a.data_ptr(), b.data_ptr(),
-                                     x.data_ptr(), bsz, k, *a.stride(),
-                                     *b.stride(), *x.stride(), 0, stream)
+    def launch(lib, systems):
+        ptrs = (a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, k,
+                *a.stride(), *b.stride(), *x.stride())
+        if args.layout == "t":
+            err = lib.qmf_chol_solve_t_f32(*ptrs, systems, 0, stream)
+        else:
+            err = lib.qmf_chol_solve_f32(*ptrs, 0, stream)
         if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
+            raise RuntimeError(f"launch failed ({systems or 'auto'} systems "
+                               f"a block): CUDA error {err}")
 
-    times = {name: [] for name in libs}
-    for lib in libs.values():
-        launch(lib)
+    counts = args.systems if args.layout == "t" else [0]
+    times = {(name, n): [] for name in libs for n in counts}
+    for name, n in times:
+        launch(libs[name], n)
     torch.cuda.synchronize()
     for _ in range(args.rounds):
-        for name, lib in libs.items():
+        for (name, n), t in times.items():
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            launch(lib)
+            launch(libs[name], n)
             end.record()
             torch.cuda.synchronize()
-            times[name].append(start.elapsed_time(end))
-    for name, t in times.items():
-        print(f"chol_phases B={bsz} k={k} f32 {name}: median_ms="
+            t.append(start.elapsed_time(end))
+    for (name, n), t in times.items():
+        what = f"{args.layout} systems={n or 'auto'}" if n or \
+            args.layout == "t" else args.layout
+        print(f"chol_phases B={bsz} k={k} f32 {what} {name}: median_ms="
               f"{statistics.median(t)} min_ms={min(t)}", flush=True)
     return 0
 

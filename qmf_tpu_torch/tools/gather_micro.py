@@ -18,12 +18,15 @@ times the ways to write that gather on one class shape:
   isel      torch.index_select(y_bf16, 0, flat padded index)
   cuda_vec  ops.gather.gather_rows, variant "vec", on isel's inputs
   cuda_warp the same, variant "warp"
+  cuda_tile the same, variant "tile" (tiles of 32 rows through shared
+            memory, read by 16-byte cp.async, written by one bulk store)
+  cuda_tile_bulk  the same, variant "tile_bulk" (read by one bulk copy a row)
 
 Each line gives the median ms (CUDA events around 10 calls, 7 rounds, the
 idioms taking turns, after one warm-up call each), ns per row, GB/s of bf16
 output, and the share of the bound: the least time for the table read once
 plus the indices read and the rows written, over 3.35 TB/s. A second bound
-reads every gathered row from device memory too. Then both kernels are held
+reads every gathered row from device memory too. Then the kernels are held
 bit for bit against isel: ``max |diff|`` must print 0, anything else raises.
 
 It runs on the card unless ``--device=cpu`` is given; there the times are
@@ -48,6 +51,7 @@ DEFAULT_SPECS = ((14336, 64), (11520, 256))
 PAD = 512
 HBM_BPS = 3.35e12  # H100 SXM, NVIDIA's data sheet
 ROUNDS, CALLS = 7, 10
+KERNELS = ("vec", "warp", "tile", "tile_bulk")  # gather_rows' variants
 
 
 def card_line() -> str:
@@ -152,16 +156,17 @@ def sweep(specs=DEFAULT_SPECS, device: str | torch.device = "cuda",
             "isel": lambda: torch.index_select(yb, 0, flatp),
         }
         if on_card:
-            fns["cuda_vec"] = lambda: gather.gather_rows(yb, flatp, "vec")
-            fns["cuda_warp"] = lambda: gather.gather_rows(yb, flatp, "warp")
+            for variant in KERNELS:
+                fns[f"cuda_{variant}"] = (
+                    lambda v=variant: gather.gather_rows(yb, flatp, v))
         ms = median_ms(fns, device, rounds, calls)
         for name, t in ms.items():
-            print(f"  {name:10s} {t:9.4f} ms  {t / rows * 1e6:7.3f} ns/row  "
+            print(f"  {name:14s} {t:9.4f} ms  {t / rows * 1e6:7.3f} ns/row  "
                   f"{rows * K * 2 / t / 1e6:8.1f} GB/s(bf16)  "
                   f"{100 * bound_ms / t:5.1f}% of bound{where}", flush=True)
         if on_card:
             ref = torch.index_select(yb, 0, flatp)
-            for variant in ("vec", "warp"):
+            for variant in KERNELS:
                 got = gather.gather_rows(yb, flatp, variant)
                 torch.cuda.synchronize()
                 diff = float((got.float() - ref.float()).abs().max())
@@ -171,8 +176,9 @@ def sweep(specs=DEFAULT_SPECS, device: str | torch.device = "cuda",
                         f"cuda_{variant} differs from index_select on "
                         f"({n}, {d}): max |diff| = {diff}")
         else:
-            print("  cuda_vec, cuda_warp: left out (--device=cpu; the "
-                  "kernels run only on a CUDA device)", flush=True)
+            print(f"  {', '.join(f'cuda_{v}' for v in KERNELS)}: left out "
+                  "(--device=cpu; the kernels run only on a CUDA device)",
+                  flush=True)
         results.append({"spec": (n, d), "rows": rows, "ms": ms,
                         "bound_ms": bound_ms, "every_row_ms": every_ms})
     return results

@@ -58,14 +58,19 @@ def _port(table, idx, **kw):
                               torch.from_numpy(idx), **kw)
 
 
-@pytest.mark.parametrize("variant", ["vec", "warp"])
+VARIANTS = ["vec", "warp", "tile", "tile_bulk"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_pallas_take_matches(probes, variant):
     table, idx = _inputs()
     with pltpu.force_tpu_interpret_mode():
         want = probes[0].pallas_take(jnp.asarray(table).astype(jnp.bfloat16),
                                      jnp.asarray(idx))
-    np.testing.assert_array_equal(_bits(_port(table, idx, variant=variant)),
-                                  _bits(want))
+    got = _port(table, idx, variant=variant)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert torch.equal(got, gather.gather_rows_plain(
+        torch.from_numpy(table).to(torch.bfloat16), torch.from_numpy(idx)))
 
 
 def test_pallas_gather_first_block_and_its_reference(probes):
@@ -147,11 +152,13 @@ def test_vmem_take_probe_fills_like_the_port(probes):
     assert not got[[2, 3, 4]].any() and got[[0, 1, 5]].any(dim=1).all()
 
 
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("shape", [(7,), (3, 5), (2, 3, 4), (0,), (4, 0)])
-def test_result_shape_follows_idx(shape):
+def test_result_shape_follows_idx(shape, variant):
     table, _ = _inputs()
     idx = np.random.default_rng(4).integers(0, TABLE_ROWS, shape)
-    got = gather.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    got = gather.gather_rows(torch.from_numpy(table), torch.from_numpy(idx),
+                             variant)
     assert got.shape == (*shape, K)
     np.testing.assert_array_equal(got.numpy(), table[idx])
     np.testing.assert_array_equal(
@@ -162,6 +169,7 @@ def test_result_shape_follows_idx(shape):
 @pytest.mark.parametrize("call,match", [
     (lambda t, i: gather.gather_rows(t, i, variant="block"), "variant"),
     (lambda t, i: gather.gather_rows(t, i, variant="warp", fill=True), "fill"),
+    (lambda t, i: gather.gather_rows(t, i, variant="tile", fill=True), "fill"),
     (lambda t, i: gather.gather_rows(t[0], i), "table"),
     (lambda t, i: gather.gather_rows(t.to(torch.float16), i), "bfloat16"),
     (lambda t, i: gather.gather_rows(t, i.to(torch.int16)), "int32 or int64"),
@@ -170,7 +178,8 @@ def test_wrapper_rejects(call, match):
     table, idx = _inputs()
     with pytest.raises(ValueError, match=match):
         call(torch.from_numpy(table), torch.from_numpy(idx))
-    assert gather.launches == {"vec": 0, "warp": 0, "fill": 0}  # CPU calls
+    assert gather.launches == {"vec": 0, "warp": 0, "tile": 0,
+                               "tile_bulk": 0, "fill": 0}  # CPU calls
 
 
 # (row bytes, table pointer, out pointer) -> width for "vec" and "warp":
@@ -191,6 +200,38 @@ def test_vector_bytes(row_bytes, table_ptr, out_ptr, vec, warp):
     assert gather.vector_bytes(row_bytes, table_ptr, out_ptr, "warp") == warp
     with pytest.raises(ValueError, match="aligned"):
         gather.vector_bytes(row_bytes, table_ptr + 1, out_ptr)
+
+
+# (row bytes, table pointer, out pointer) -> (rows a tile, tiles a warp,
+# copy width, how "tile" reads): 4096 bytes a tile, at most 32 rows; two
+# tiles and asynchronous copies where everything is a multiple of 16, else
+# one tile and lane copies of the widest width that fits.
+@pytest.mark.parametrize("row_bytes,table_ptr,out_ptr,want", [
+    (128, 0x1000, 0x2000, (32, 2, 16, "cp16")),  # k = 64 bf16
+    (512, 0x1000, 0x2000, (8, 2, 16, "cp16")),  # k = 64 f64
+    (60, 0x1000, 0x2000, (32, 1, 4, "lanes")),  # k = 30 bf16
+    (2, 0x1000, 0x2000, (32, 1, 2, "lanes")),  # k = 1 bf16
+    (128, 0x1002, 0x2000, (32, 1, 2, "lanes")),  # 2 bytes off a boundary
+    (128, 0x1000, 0x2008, (32, 1, 8, "lanes")),  # the output 8 off
+    (240, 0x1000, 0x2000, (17, 2, 16, "cp16")),  # k = 30 f64: 4080 B a tile
+    (1024, 0x1000, 0x2000, (4, 2, 16, "cp16")),  # k = 128 f64
+    (8192, 0x1000, 0x2000, (1, 2, 16, "cp16")),  # a row above a tile
+    (130, 0x1000, 0x2000, (31, 1, 2, "lanes")),  # k = 65 bf16
+])
+def test_tile_plan(row_bytes, table_ptr, out_ptr, want):
+    assert gather.tile_plan(row_bytes, table_ptr, out_ptr) == want
+    bulk = gather.tile_plan(row_bytes, table_ptr, out_ptr, "tile_bulk")
+    assert bulk[:3] == want[:3]
+    assert bulk.read == ("bulk" if want[3] == "cp16" else "lanes")
+    with pytest.raises(ValueError, match="aligned"):
+        gather.tile_plan(row_bytes, table_ptr + 1, out_ptr)
+
+
+def test_tile_plan_rejects_rows_above_shared_memory():
+    assert gather.tile_plan(116224, 0, 0).rows == 1  # two of them just fit
+    with pytest.raises(ValueError, match="shared memory"):
+        gather.tile_plan(116240, 0, 0)
+    assert gather.tile_plan(232440, 0, 8) == (1, 1, 8, "lanes")
 
 
 def test_probe_inputs_match_the_originals(probes):
@@ -233,7 +274,8 @@ def test_probe_entry_points_run_on_cpu(capsys, tool, argv):
     out = capsys.readouterr().out
     assert "isel" in out and "[host clock, cpu]" in out
     assert "left out (--device=cpu" in out
-    assert "cuda_vec " not in out and "max |diff|" not in out
+    assert "cuda_vec " not in out and "cuda_tile " not in out
+    assert "max |diff|" not in out
 
 
 def test_gather_bounds():

@@ -50,7 +50,7 @@ def _check_chol(a, b, layout, tol):
 @pytest.mark.parametrize("k", [1, 8, 30, 31, 33, 64, 65, 128, "max"])
 def test_kernel_matches_plain(cuda, k, dtype, tol, layout):
     if k == "max":
-        k = kernels.chol_solve_max_k(dtype)
+        k = kernels.chol_solve_max_k(dtype, batch_last=layout == "t")
     a, b = _spd(37, k, dtype, cuda, seed=k)
     _check_chol(a, b, layout, tol)
 
@@ -66,6 +66,50 @@ def test_kernel_partial_last_block(cuda, bsz, k, dtype, layout):
         bsz = per_block + 1
     a, b = _spd(bsz, k, dtype, cuda, seed=bsz + k)
     _check_chol(a, b, layout, _TOL[dtype])
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 8, 30, 33, 64, 65, "max"])
+@pytest.mark.parametrize("bsz", [1, 13, "per_block+1", 131])
+def test_cholesky_solve_t_matches_plain(cuda, bsz, k, dtype, resident):
+    """The batch-last entry on a resident (k, k, B) buffer, and on a
+    batch-first one seen through a permuted view: both read where they lie,
+    one launch each, x written batch-last."""
+    if k == "max":
+        k = kernels.chol_solve_max_k(dtype, batch_last=True)
+    if bsz == "per_block+1":
+        bsz = kernels.chol_solve_limits(dtype, k).systems_per_block_t + 1
+    a, b = _spd(bsz, k, dtype, cuda, seed=bsz + k)
+    a_t, b_t = a.permute(1, 2, 0), b.t()
+    if resident:
+        a_t, b_t = a_t.contiguous(), b_t.contiguous()
+    before = (spd_solve.launches, spd_solve.launches_t)
+    x_t = spd_solve.cholesky_solve_t(a_t, b_t)
+    torch.cuda.synchronize()
+    assert (spd_solve.launches, spd_solve.launches_t) == (
+        before[0] + 1, before[1] + 1)
+    assert x_t.shape == (k, bsz) and x_t.is_contiguous()
+    torch.testing.assert_close(x_t.t(), spd_solve.solve_spd_reference(a, b),
+                               rtol=_TOL[dtype], atol=_TOL[dtype])
+
+
+def test_cholesky_solve_t_non_spd_in_a_tail_block(cuda):
+    k = 64
+    per_block = kernels.chol_solve_limits(
+        torch.float32, k).systems_per_block_t
+    bsz = per_block + 3
+    a, b = _spd(bsz, k, torch.float32, cuda, seed=11)
+    bad = [1, per_block + 1]
+    a[bad[0], 40, 40] = -5.0
+    a[bad[1]] = -a[bad[1]]
+    x = spd_solve.cholesky_solve_t(a.permute(1, 2, 0).contiguous(),
+                                   b.t().contiguous()).t()
+    torch.cuda.synchronize()
+    good = [i for i in range(bsz) if i not in bad]
+    assert (~torch.isfinite(x).all(dim=1)).nonzero().flatten().tolist() == bad
+    torch.testing.assert_close(x[good], spd_solve.solve_spd_reference(
+        a[good], b[good]), rtol=2e-4, atol=2e-4)
 
 
 def test_kernel_non_spd_gives_nan(cuda):
@@ -113,6 +157,19 @@ def test_chol_solve_limits(cuda, dtype, today):
         assert at_k.systems_per_block * at_k.system_bytes <= kernels.MAX_SMEM_BYTES
     assert kernels.chol_solve_limits(dtype, limits.max_k + 1).systems_per_block == 0
     assert kernels.chol_solve_limits(dtype, 64).systems_per_block >= 2
+    # the batch-last entry: b and x in shared memory too, so no larger a k;
+    # a multiple of 8 systems wherever 8 fit
+    assert limits.max_k - 8 <= limits.max_k_t <= limits.max_k
+    for k in range(1, limits.max_k_t + 1):
+        at_k = kernels.chol_solve_limits(dtype, k)
+        assert at_k.systems_per_block_t >= 1
+        assert at_k.system_bytes_t > at_k.system_bytes
+        assert (at_k.systems_per_block_t * at_k.system_bytes_t
+                <= kernels.MAX_SMEM_BYTES)
+        if 8 * at_k.system_bytes_t <= kernels.MAX_SMEM_BYTES:
+            assert at_k.systems_per_block_t % 8 == 0
+    assert kernels.chol_solve_limits(
+        dtype, limits.max_k_t + 1).systems_per_block_t == 0
 
 
 def test_kernel_rejects_k_over_limit(cuda):

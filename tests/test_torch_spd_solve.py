@@ -45,6 +45,87 @@ def test_matches_pallas_interpret(k, layout):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("k", [8, 16])
+def test_cholesky_solve_t_matches_pallas_interpret(k):
+    """The batch-last entry on the same (k, k, B) operand as the TPU
+    kernel's, which wants B a multiple of its tile."""
+    a, b = _random_spd(16, k, seed=k)
+    a_t, b_t = a.transpose(1, 2, 0).copy(), b.T.copy()
+    want = np.asarray(pallas_solve.cholesky_solve_t(
+        jnp.asarray(a_t), jnp.asarray(b_t), tb=8, interpret=True))
+    got = spd_solve.cholesky_solve_t(torch.from_numpy(a_t),
+                                     torch.from_numpy(b_t))
+    assert got.dtype == torch.float32 and got.shape == (k, 16) == want.shape
+    # both f32 with different accumulation orders, as above
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("contiguous", [True, False])
+@pytest.mark.parametrize("k", [30, 64])
+def test_cholesky_solve_t_matches_numpy_f64(k, contiguous):
+    """No tile multiple in B or k; a resident batch-last buffer, and a
+    batch-first one seen through a permuted view, read where they lie."""
+    a, b = _random_spd(13, k, seed=200 + k, dtype=np.float64)
+    want = np.linalg.solve(a, b[..., None])[..., 0].T
+    a_t = torch.from_numpy(a).permute(1, 2, 0)
+    b_t = torch.from_numpy(b).t()
+    if contiguous:
+        a_t, b_t = a_t.contiguous(), b_t.contiguous()
+    got = spd_solve.cholesky_solve_t(a_t, b_t)
+    assert got.dtype == torch.float64 and got.shape == (k, 13)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
+
+
+def test_cholesky_solve_t_shapes_and_launch_counts():
+    before = (spd_solve.launches, spd_solve.launches_t)
+    a, b = _random_spd(5, 8)
+    a_t = torch.from_numpy(a).permute(1, 2, 0).contiguous()
+    b_t = torch.from_numpy(b).t().contiguous()
+    x_t = spd_solve.cholesky_solve_t(a_t, b_t)
+    assert x_t.shape == (8, 5)
+    # solve_spd(layout="t") is that entry between two transposes
+    torch.testing.assert_close(
+        x_t.t(), spd_solve.solve_spd(torch.from_numpy(a),
+                                     torch.from_numpy(b), layout="t"))
+    assert spd_solve.cholesky_solve_t(
+        torch.zeros(8, 8, 0), torch.zeros(8, 0)).shape == (8, 0)
+    with pytest.raises(ValueError, match=r"\(k, k, B\)"):  # batch-first
+        spd_solve.cholesky_solve_t(torch.from_numpy(a), torch.from_numpy(b))
+    with pytest.raises(ValueError, match=r"\(k, k, B\)"):
+        spd_solve.cholesky_solve_t(a_t, b_t.t())
+    with pytest.raises(ValueError, match="float32 or float64"):
+        spd_solve.cholesky_solve_t(a_t.to(torch.float16),
+                                   b_t.to(torch.float16))
+    # a non-SPD system is NaN beside finite neighbours here too
+    a_t[:, :, 3] = -a_t[:, :, 3]
+    bad = ~torch.isfinite(spd_solve.cholesky_solve_t(a_t, b_t)).all(dim=0)
+    assert bad.tolist() == [False, False, False, True, False]
+    assert (spd_solve.launches, spd_solve.launches_t) == before  # CPU calls
+
+
+def test_solver_micro_runs_on_cpu(capsys):
+    """The probe's entry point at a small batch: the plain version on the
+    host's clock, said on the line, all four columns, both entries checked;
+    and its systems are benchmarks/solver_micro.py's (seed 0, same draws)."""
+    from qmf_tpu_torch.tools import solver_micro
+
+    assert solver_micro.main(["16", "--device=cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("B=16: ") and "[host clock, cpu]" in out
+    for column in ("solve_spd=", "solve_spd_t=", "kernel_only=",
+                   "linalg_solve="):
+        assert column in out
+    rng = np.random.default_rng(0)
+    m = rng.normal(size=(3, 64, 64)).astype(np.float32)
+    a = m @ m.transpose(0, 2, 1) + 10 * np.eye(64, dtype=np.float32)
+    b = rng.normal(size=(3, 64)).astype(np.float32)
+    got_a, got_b = solver_micro.systems(np.random.default_rng(0), 3,
+                                        torch.device("cpu"))
+    np.testing.assert_array_equal(got_a.numpy(), a)
+    np.testing.assert_array_equal(got_b.numpy(), b)
+    assert (solver_micro.K, solver_micro.DEFAULT_SIZES) == (64, (512, 2048))
+
+
 @pytest.mark.parametrize("k", [8, 30, 64])
 def test_reference_matches_numpy_f64(k):
     a, b = _random_spd(9, k, seed=100 + k, dtype=np.float64)
@@ -99,14 +180,17 @@ def test_kernel_shared_memory_limits(monkeypatch):
         def qmf_chol_solve_limits(dtype, k, out):
             calls.append((dtype, k))
             out[0], out[1], out[2] = 300 + dtype, 7 + k, 9 * k
+            out[3], out[4], out[5] = 290 + dtype, 8, 10 * k
             return 0
 
     monkeypatch.setattr(kernels, "load", lambda: FakeLib)
     kernels.chol_solve_limits.cache_clear()
     try:
-        assert kernels.chol_solve_limits(torch.float32, 64) == (300, 71, 576)
+        assert kernels.chol_solve_limits(torch.float32, 64) == (
+            300, 71, 576, 290, 8, 640)
         assert kernels.chol_solve_max_k(torch.float64) == 301
         assert kernels.chol_solve_max_k(torch.float32) == 300
+        assert kernels.chol_solve_max_k(torch.float32, batch_last=True) == 290
         assert calls == [(0, 64), (1, 1), (0, 1)]
     finally:
         kernels.chol_solve_limits.cache_clear()
