@@ -8,12 +8,17 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
 
 0. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 1. build the CUDA kernels from csrc/ (nvcc, sm_90a);
-2. the kernel against its plain PyTorch version, f32 and f64, both layouts,
-   k in {1, 8, 16, 30, 31, 33, 64, 65, 128, the library's max k} x B in
-   {1, 13, systems per block + 1, 4097 (k <= 128)}; non-SPD rows give NaN,
-   beside SPD rows of their block; then the kernel, its plain version and
-   torch.linalg.solve timed at the ml20m user side's shape (B = 138,493,
-   k = 64), with the bound and the systems per block;
+2. the kernel against its plain PyTorch version, f32 and f64, through its
+   batch-first entry (solve_spd), its batch-last entry (cholesky_solve_t on
+   a (k, k, B) buffer) and solve_spd(layout="t"), k in {1, 8, 16, 30, 31,
+   33, 64, 65, 128, either entry's max k} x B in {1, 13, either entry's
+   systems per block + 1, 4097 (k <= 128)}; non-SPD rows give NaN through
+   either entry, beside SPD rows of their block, one of them in a tail
+   block; then, at the ml20m user side's shape (B = 138,493, k = 64), both
+   entries on resident buffers, layout="t" with its batch-last copy, that
+   copy alone, the batch-first entry reading the batch-last buffer through
+   strides, the plain version and torch.linalg.solve timed in turns, with
+   the bound and the systems per block;
 3. the CLI main path at ml100k scale with CLI defaults (k = 30): launch
    count, factor files, test AUC, and the factors against a plain-cholesky
    run on the card;
@@ -35,16 +40,17 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    its plain version on that run's largest user class, checked and timed;
    then each item class of the fused+hot path, and the user and item
    half-epochs of the split, fused and fused+hot paths, timed in turns;
-7. the gather kernels (vec, warp, fill) against their plain version, bit
-   for bit: bf16/f32/f64 x k in {1, 3, 30, 64, 65, 128} x R in {1, 255, 513,
-   2^20} x int32/int64 indices, fill with indices in [-rows-3, rows+3), a
-   table view that starts one element into its storage, a 2-D index; then
-   the two probe entry points (tools.gather_micro's default shapes,
-   tools.vmem_gather_micro at 2^22 rows with and without the L2 window),
-   whose launches are counted; then the three kernels, their plain version
-   and index_select timed in turns at the probes' shapes and on phase 4's
-   largest user class (its col_idx against the item factors in bf16), with
-   both bounds;
+7. the gather kernels (vec, warp, tile, tile_bulk, fill) against their plain
+   version, bit for bit: bf16/f32/f64 x k in {1, 3, 30, 64, 65, 128} x R in
+   {1, 255, 513, 2^20} x int32/int64 indices, fill with indices in
+   [-rows-3, rows+3), a table view that starts one element into its
+   storage, a 2-D index; then the three probe entry points
+   (tools.gather_micro's default shapes, tools.vmem_gather_micro at 2^22
+   rows with and without the L2 window, tools.solver_micro at B = 512 and
+   2048), whose launches are counted; then the gather kernels, their plain
+   version and index_select timed in turns at the probes' shapes and on
+   phase 4's largest user class (its col_idx against the item factors in
+   bf16), with both bounds;
 8. serving: the recommend CLI on phase 3's ml100k factor files with
    --exclude_seen on its training file (every line parses, no listed item
    was seen, scores descend); then recommend_top_n on phase 4's ml20m

@@ -52,7 +52,7 @@
 // The triangle's loads go out with cp.async, all of a warp's in flight at
 // once. Register arrays are indexed only by constants (pivots are walked in
 // 32-row slots, unrolled): a run-time index would move them to local memory.
-// The library reports max k and systems per block (qmf_chol_solve_limits,
+// The library reports max k and systems per block (qmf_chol_solve_limits_*,
 // from shared memory and the kernel's registers), so no caller repeats this
 // layout.
 //
@@ -72,8 +72,11 @@
 // system's region is padded so that consecutive systems start 4 banks apart:
 // the S values of one entry then land in distinct banks (without it, at
 // k = 64 in f32, in one). S is a multiple of 8 (32-byte runs in f32) where
-// 8 systems fit. The branch between the two entries is uniform over the
-// grid, so both share one kernel and one set of instantiations.
+// 8 systems fit. The entry is a template parameter of the kernel: as a
+// run-time branch of one kernel it cost the batch-first entry 8% (the
+// compiler then shares one register allocation between the two, 60 against
+// 73 at k = 64), so each entry has its own instantiations, and the library
+// is built one dtype a translation unit to keep nvcc's time where it was.
 
 #include <cuda_runtime.h>
 
@@ -416,17 +419,17 @@ __device__ inline void block_load(const BlockWalk w, T* region, const T* a,
 
 // blockDim = (32, systems per block); warp y of block x owns system
 // x blockDim.y + y. ``stride`` is a system's region in shared memory, in
-// elements. batch_last = 0: each warp loads its own system through the
-// strides and stores its own x; no block barrier. batch_last = 1: the
-// block loads and stores together (block_load), and the tail block's warps
-// without a system stay for both barriers.
-template <typename T, int KT>
+// elements. Batch-last: the block loads and stores together (block_load),
+// and the tail block's warps without a system stay for both barriers.
+// Batch-first: each warp loads its own system through the strides and stores
+// its own x; no block barrier.
+template <typename T, int KT, bool kBatchLast>
 __global__ void chol_solve_kernel(const T* __restrict__ a,
                                   const T* __restrict__ b, T* __restrict__ x,
                                   int64_t batch, int k, int stride,
-                                  int batch_last, int64_t sa_b, int64_t sa_r,
-                                  int64_t sa_c, int64_t sb_b, int64_t sb_r,
-                                  int64_t sx_b, int64_t sx_r) {
+                                  int64_t sa_b, int64_t sa_r, int64_t sa_c,
+                                  int64_t sb_b, int64_t sb_r, int64_t sx_b,
+                                  int64_t sx_r) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x;
   const int64_t sys0 = int64_t(blockIdx.x) * blockDim.y;
@@ -435,18 +438,34 @@ __global__ void chol_solve_kernel(const T* __restrict__ a,
   T* s = reinterpret_cast<T*>(smem_raw) + threadIdx.y * stride;
   T z[KT];
 
-  if (batch_last) {
+  if constexpr (kBatchLast) {
     const BlockWalk w(blockDim.y, lane, threadIdx.y);
     const int64_t mine = sys0 + w.sys;
+    T* region = reinterpret_cast<T*>(smem_raw) + w.sys * stride;
     if (mine < batch)
-      block_load(w, reinterpret_cast<T*>(smem_raw) + w.sys * stride,
-                 a + mine * sa_b, b + mine * sb_b, k, sa_r, sa_c, sb_r);
+      block_load(w, region, a + mine * sa_b, b + mine * sb_b, k, sa_r, sa_c,
+                 sb_r);
     cp_async_wait_all();
     __syncthreads();
+    if (live) {
 #pragma unroll
-    for (int t = 0; t < KT; ++t) {
-      const int i = lane + 32 * t;
-      z[t] = i < k ? s[row_off(k) + i] : T(0);
+      for (int t = 0; t < KT; ++t) {
+        const int i = lane + 32 * t;
+        z[t] = i < k ? s[row_off(k) + i] : T(0);
+      }
+      warp_factor_solve<T, KT>(s, z, k, lane);
+      // x through the entries b came in by, then out with lanes along B
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const int i = lane + 32 * t;
+        if (i < k) s[row_off(k) + i] = z[t];
+      }
+    }
+    __syncthreads();
+    if (mine < batch) {
+      const T* from = region + row_off(k);
+      for (int i = w.item; i < k; i += 32)
+        x[mine * sx_b + i * sx_r] = from[i];
     }
   } else {
     if (!live) return;
@@ -467,29 +486,7 @@ __global__ void chol_solve_kernel(const T* __restrict__ a,
     }
     cp_async_wait_all();
     __syncwarp();
-  }
-
-  if (live) warp_factor_solve<T, KT>(s, z, k, lane);
-
-  if (batch_last) {
-    // x through the entries b came in by, then out with lanes along B
-    if (live) {
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        const int i = lane + 32 * t;
-        if (i < k) s[row_off(k) + i] = z[t];
-      }
-    }
-    __syncthreads();
-    const BlockWalk w(blockDim.y, lane, threadIdx.y);
-    const int64_t mine = sys0 + w.sys;
-    if (mine < batch) {
-      const T* from =
-          reinterpret_cast<T*>(smem_raw) + w.sys * stride + row_off(k);
-      for (int i = w.item; i < k; i += 32)
-        x[mine * sx_b + i * sx_r] = from[i];
-    }
-  } else {
+    warp_factor_solve<T, KT>(s, z, k, lane);
 #pragma unroll
     for (int t = 0; t < KT; ++t) {
       const int i = lane + 32 * t;
@@ -499,14 +496,18 @@ __global__ void chol_solve_kernel(const T* __restrict__ a,
 }
 
 template <typename T>
-using KernelFn = void (*)(const T*, const T*, T*, int64_t, int, int, int,
+using KernelFn = void (*)(const T*, const T*, T*, int64_t, int, int, int64_t,
                           int64_t, int64_t, int64_t, int64_t, int64_t,
-                          int64_t, int64_t);
+                          int64_t);
 
 template <typename T, int... KTs>
-KernelFn<T> pick_kernel(int kt, std::integer_sequence<int, KTs...>) {
+KernelFn<T> pick_kernel(int kt, bool batch_last,
+                        std::integer_sequence<int, KTs...>) {
   KernelFn<T> fn = nullptr;
-  ((fn = (kt == KTs + 1) ? chol_solve_kernel<T, KTs + 1> : fn), ...);
+  ((fn = (kt == KTs + 1) ? (batch_last ? chol_solve_kernel<T, KTs + 1, true>
+                                       : chol_solve_kernel<T, KTs + 1, false>)
+                         : fn),
+   ...);
   return fn;
 }
 
@@ -516,7 +517,7 @@ KernelFn<T> pick_kernel(int kt, std::integer_sequence<int, KTs...>) {
 template <typename T>
 cudaError_t plan(int k, bool batch_last, int systems, KernelFn<T>* fn,
                  int* per_block) {
-  *fn = pick_kernel<T>((k + 31) / 32,
+  *fn = pick_kernel<T>((k + 31) / 32, batch_last,
                        std::make_integer_sequence<int, kMaxSlots>{});
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, *fn);
@@ -556,13 +557,13 @@ int launch(const void* a, const void* b, void* x, long long batch, int k,
   fn<<<dim3(unsigned(blocks)), block, smem,
        reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(x),
-      batch, k, system_elems<T>(k, batch_last), int(batch_last), sa_b, sa_r,
-      sa_c, sb_b, sb_r, sx_b, sx_r);
+      batch, k, system_elems<T>(k, batch_last), sa_b, sa_r, sa_c, sb_b, sb_r,
+      sx_b, sx_r);
   return int(cudaGetLastError());
 }
 
 // Fills out[0..2] (max k, systems per block, bytes per system) for one
-// entry of one dtype; see qmf_chol_solve_limits.
+// entry of one dtype; see qmf_chol_solve_limits_<dtype>.
 template <typename T>
 cudaError_t limits(int k, bool batch_last, int* out) {
   out[0] = max_k<T>(batch_last);
@@ -575,66 +576,60 @@ cudaError_t limits(int k, bool batch_last, int* out) {
 
 }  // namespace
 
+// One translation unit per dtype where QMF_CHOL_DTYPE says so (32 or 64:
+// the library's build compiles both, side by side); without it, both.
+#ifndef QMF_CHOL_DTYPE
+#define QMF_CHOL_DTYPE 0
+#endif
+
 extern "C" {
 
-// Batch-first or any strides: a (B, k, k), b and x (B, k), each warp loading
-// its own system. Strides are in elements. Returns the cudaError_t of the
-// launch.
-int qmf_chol_solve_f32(const void* a, const void* b, void* x, long long batch,
-                       int k, long long sa_b, long long sa_r, long long sa_c,
-                       long long sb_b, long long sb_r, long long sx_b,
-                       long long sx_r, int device, void* stream) {
-  return launch<float>(a, b, x, batch, k, false, 0, sa_b, sa_r, sa_c, sb_b,
-                       sb_r, sx_b, sx_r, device, stream);
-}
-
-int qmf_chol_solve_f64(const void* a, const void* b, void* x, long long batch,
-                       int k, long long sa_b, long long sa_r, long long sa_c,
-                       long long sb_b, long long sb_r, long long sx_b,
-                       long long sx_r, int device, void* stream) {
-  return launch<double>(a, b, x, batch, k, false, 0, sa_b, sa_r, sa_c, sb_b,
-                        sb_r, sx_b, sx_r, device, stream);
-}
-
-// Batch-last: the same systems and the same strides' meaning, loaded and
+// qmf_chol_solve_<dtype>: batch-first or any strides, a (B, k, k), b and x
+// (B, k), each warp loading its own system. qmf_chol_solve_t_<dtype>:
+// batch-last, the same systems and the same strides' meaning, loaded and
 // stored by the block together, which is what a batch stride of 1 (a
-// (k, k, B), b and x (k, B)) wants. ``systems`` > 0 names the systems per
+// (k, k, B), b and x (k, B)) wants; ``systems`` > 0 names the systems per
 // block (cudaErrorInvalidValue where that count does not fit), 0 leaves it
-// to the library.
-int qmf_chol_solve_t_f32(const void* a, const void* b, void* x,
-                         long long batch, int k, long long sa_b,
-                         long long sa_r, long long sa_c, long long sb_b,
-                         long long sb_r, long long sx_b, long long sx_r,
-                         int systems, int device, void* stream) {
-  return launch<float>(a, b, x, batch, k, true, systems, sa_b, sa_r, sa_c,
-                       sb_b, sb_r, sx_b, sx_r, device, stream);
-}
-
-int qmf_chol_solve_t_f64(const void* a, const void* b, void* x,
-                         long long batch, int k, long long sa_b,
-                         long long sa_r, long long sa_c, long long sb_b,
-                         long long sb_r, long long sx_b, long long sx_r,
-                         int systems, int device, void* stream) {
-  return launch<double>(a, b, x, batch, k, true, systems, sa_b, sa_r, sa_c,
-                        sb_b, sb_r, sx_b, sx_r, device, stream);
-}
-
-// For the dtype (0 f32, 1 f64), out[0..2] of the batch-first entry and
+// to the library. Strides are in elements. Both return the cudaError_t of
+// the launch.
+// qmf_chol_solve_limits_<dtype>: out[0..2] of the batch-first entry and
 // out[3..5] of the batch-last one: the largest k; the systems per block at k
 // as a launch on the current device chooses it (0 where k is out of range);
 // the shared bytes per system at k. Returns a cudaError_t.
-int qmf_chol_solve_limits(int dtype, int k, int* out) {
-  for (int entry = 0; entry < 2; ++entry) {
-    const cudaError_t err = dtype != 0
-                                ? limits<double>(k, entry, out + 3 * entry)
-                                : limits<float>(k, entry, out + 3 * entry);
-    if (err != cudaSuccess) return int(err);
+#define QMF_CHOL_ENTRIES(NAME, T)                                             \
+  int qmf_chol_solve_##NAME(const void* a, const void* b, void* x,            \
+                            long long batch, int k, long long sa_b,           \
+                            long long sa_r, long long sa_c, long long sb_b,   \
+                            long long sb_r, long long sx_b, long long sx_r,   \
+                            int device, void* stream) {                       \
+    return launch<T>(a, b, x, batch, k, false, 0, sa_b, sa_r, sa_c, sb_b,     \
+                     sb_r, sx_b, sx_r, device, stream);                       \
+  }                                                                           \
+  int qmf_chol_solve_t_##NAME(const void* a, const void* b, void* x,          \
+                              long long batch, int k, long long sa_b,         \
+                              long long sa_r, long long sa_c, long long sb_b, \
+                              long long sb_r, long long sx_b, long long sx_r, \
+                              int systems, int device, void* stream) {        \
+    return launch<T>(a, b, x, batch, k, true, systems, sa_b, sa_r, sa_c,      \
+                     sb_b, sb_r, sx_b, sx_r, device, stream);                 \
+  }                                                                           \
+  int qmf_chol_solve_limits_##NAME(int k, int* out) {                         \
+    for (int entry = 0; entry < 2; ++entry) {                                 \
+      const cudaError_t err = limits<T>(k, entry != 0, out + 3 * entry);      \
+      if (err != cudaSuccess) return int(err);                                \
+    }                                                                         \
+    return int(cudaSuccess);                                                  \
   }
-  return int(cudaSuccess);
-}
+
+#if QMF_CHOL_DTYPE != 64
+QMF_CHOL_ENTRIES(f32, float)
 
 const char* qmf_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif
+#if QMF_CHOL_DTYPE != 32
+QMF_CHOL_ENTRIES(f64, double)
+#endif
 
 }  // extern "C"

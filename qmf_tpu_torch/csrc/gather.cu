@@ -435,7 +435,8 @@ cudaError_t launch_tile(const Args& a, int sms) {
 }
 
 // Variant 2 reads a tile by one bulk copy a row, variant 3 by 16-byte
-// cp.async; below 16 bytes of width both take the lane copies.
+// cp.async (the faster on the probes' shapes, by a few percent); below 16
+// bytes of width both take the lane copies.
 template <typename I>
 cudaError_t launch_tile_width(const Args& a, int width, int sms) {
   switch (width) {

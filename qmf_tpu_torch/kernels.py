@@ -27,7 +27,15 @@ from typing import NamedTuple
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("csrc/chol_solve.cu", "csrc/build_solve.cu", "csrc/gather.cu")
+# (source, extra nvcc flags) of each translation unit. chol_solve.cu's
+# instantiations (one kernel per 32-row slot count) take nvcc the longest, so
+# it is compiled once per dtype, side by side.
+UNITS = (
+    ("csrc/chol_solve.cu", ("-DQMF_CHOL_DTYPE=32",)),
+    ("csrc/chol_solve.cu", ("-DQMF_CHOL_DTYPE=64",)),
+    ("csrc/build_solve.cu", ()),
+    ("csrc/gather.cu", ()),
+)
 HEADERS = ("csrc/chol_core.cuh",)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libqmf_kernels.so")
@@ -64,9 +72,9 @@ def available() -> bool:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for rel in SOURCES + HEADERS:
+    for rel, flags in UNITS + tuple((rel, ()) for rel in HEADERS):
         with open(os.path.join(_PKG_DIR, rel), "rb") as f:
-            h.update(rel.encode())
+            h.update(" ".join((rel, *flags)).encode())
             h.update(f.read())
     return h.hexdigest()
 
@@ -94,9 +102,10 @@ def build() -> str:
                 "CUDA_HOME or put nvcc on PATH)"
             )
         tmp = LIB_PATH + f".tmp{os.getpid()}"
-        objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(_PKG_DIR, src),
-                 "-o", obj] for src, obj in zip(SOURCES, objs)]
+        objs = [f"{tmp}.{i}.o" for i in range(len(UNITS))]
+        cmds = [[nvcc, *NVCC_FLAGS, *flags, "-c",
+                 os.path.join(_PKG_DIR, src), "-o", obj]
+                for (src, flags), obj in zip(UNITS, objs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
                  for c in cmds]
@@ -144,8 +153,11 @@ def load() -> ctypes.CDLL:
             fn.restype = ci
         lib.qmf_build_solve_limits.argtypes = [ci, ctypes.POINTER(ci)]
         lib.qmf_build_solve_limits.restype = None
-        lib.qmf_chol_solve_limits.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.qmf_chol_solve_limits.restype = ci
+        for name in ("qmf_chol_solve_limits_f32",
+                     "qmf_chol_solve_limits_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ci, ctypes.POINTER(ci)]
+            fn.restype = ci
         lib.qmf_gather.argtypes = [vp, vp, vp, ll, ll, ll] + [ci] * 8 + [
             vp, ctypes.POINTER(ll)]
         lib.qmf_gather.restype = ci
@@ -179,7 +191,9 @@ def chol_solve_limits(dtype: torch.dtype, k: int = 1) -> CholSolveLimits:
     library reports them."""
     lib = load()
     out = (ctypes.c_int * len(CholSolveLimits._fields))()
-    err = lib.qmf_chol_solve_limits(int(dtype == torch.float64), k, out)
+    fn = {torch.float32: lib.qmf_chol_solve_limits_f32,
+          torch.float64: lib.qmf_chol_solve_limits_f64}[dtype]
+    err = fn(k, out)
     if err != 0:
         raise RuntimeError(
             f"chol_solve limits (k={k}, {dtype}): CUDA error {err}: "
@@ -338,7 +352,7 @@ def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
 # The access shapes of csrc/gather.cu, by the number qmf_gather knows them
 # by. "tile" reads its tiles with 16-byte cp.async, "tile_bulk" with one
 # bulk copy a row: the two candidates of the tile kernel, both kept to be
-# timed; "tile" is the faster.
+# timed; "tile" was the faster in four runs of five, by 2-8%.
 GATHER_VARIANTS = {"vec": 0, "warp": 1, "tile_bulk": 2, "tile": 3}
 
 

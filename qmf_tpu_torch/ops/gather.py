@@ -92,8 +92,8 @@ def tile_plan(row_bytes: int, table_ptr: int, out_ptr: int,
     A tile is as many rows as come to 4096 bytes, at least 1 and at most 32.
     Where a row's bytes and both base pointers are multiples of 16, a warp
     keeps two tiles: ``"tile"`` reads a tile's rows with 16-byte ``cp.async``
-    (read ``"cp16"``), ``"tile_bulk"`` with one bulk copy a row (``"bulk"``),
-    and either writes the tile with one bulk store. Bulk copies take only
+    by groups of lanes (read ``"cp16"``), ``"tile_bulk"`` with one bulk copy a
+    row (``"bulk"``), and either writes the tile with one bulk store. Bulk copies take only
     16-byte sizes and addresses, so every other shape (k = 1, 3, 30 or 65 in
     bf16; a table view that starts one element into its storage) gets one
     tile a warp, lane copies of the widest width that fits into the tile and

@@ -220,9 +220,9 @@ def test_vector_bytes(row_bytes, table_ptr, out_ptr, vec, warp):
 ])
 def test_tile_plan(row_bytes, table_ptr, out_ptr, want):
     assert gather.tile_plan(row_bytes, table_ptr, out_ptr) == want
-    bulk = gather.tile_plan(row_bytes, table_ptr, out_ptr, "tile_bulk")
-    assert bulk[:3] == want[:3]
-    assert bulk.read == ("bulk" if want[3] == "cp16" else "lanes")
+    other = gather.tile_plan(row_bytes, table_ptr, out_ptr, "tile_bulk")
+    assert other[:3] == want[:3]
+    assert other.read == ("bulk" if want[3] == "cp16" else "lanes")
     with pytest.raises(ValueError, match="aligned"):
         gather.tile_plan(row_bytes, table_ptr + 1, out_ptr)
 

@@ -314,7 +314,7 @@ def _check_gather(table, idx, kernel, **kw):
 @pytest.mark.parametrize("k", [1, 3, 30, 64, 65, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float64])
-@pytest.mark.parametrize("kernel", ["vec", "warp", "fill"])
+@pytest.mark.parametrize("kernel", ["vec", "warp", "tile", "tile_bulk", "fill"])
 def test_gather_matches_plain(cuda, kernel, dtype, k, n, idx_dtype):
     fill = kernel == "fill"
     table, idx = _gather_inputs(997, k, n, dtype, idx_dtype, cuda, fill,
@@ -326,7 +326,7 @@ def test_gather_matches_plain(cuda, kernel, dtype, k, n, idx_dtype):
 @pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 2),
                                          (torch.float32, 4),
                                          (torch.float64, 8)])
-@pytest.mark.parametrize("kernel", ["vec", "warp", "fill"])
+@pytest.mark.parametrize("kernel", ["vec", "warp", "tile", "tile_bulk", "fill"])
 def test_gather_from_a_misaligned_view(cuda, kernel, dtype, width):
     """A table that starts one element into its storage: 128-, 256- or
     512-byte rows that no 16-byte vector can copy."""
@@ -340,6 +340,23 @@ def test_gather_from_a_misaligned_view(cuda, kernel, dtype, width):
         64 * table.element_size(), table.data_ptr(), 0) == width
     _check_gather(table, idx, kernel, fill=fill,
                   variant="vec" if fill else kernel)
+
+
+@pytest.mark.parametrize("kernel", ["tile", "tile_bulk"])
+@pytest.mark.parametrize("n", [31, 32, 33, 3 * 32 * 8 * 132 * 3 + 5])
+def test_gather_tile_tails_and_stage_reuse(cuda, kernel, n):
+    """Index counts around one tile of 32 rows, and three tiles for every
+    warp of a full grid (132 SMs x 3 blocks x 8 warps), so that each reuses
+    a stage, with a short last tile;
+    int64 indices; a row longer than a tile."""
+    table, idx = _gather_inputs(997, 64, n, torch.bfloat16, torch.int64, cuda,
+                                seed=n)
+    assert gather.tile_plan(128, table.data_ptr(), 0, kernel).rows == 32
+    _check_gather(table, idx, kernel, variant=kernel)
+    wide, idx = _gather_inputs(50, 1280, min(n, 4099), torch.float64,
+                               torch.int32, cuda, seed=n)
+    assert gather.tile_plan(10240, wide.data_ptr(), 0, kernel).rows == 1
+    _check_gather(wide, idx, kernel, variant=kernel)
 
 
 def test_gather_l2_window_sets_and_resets(cuda):

@@ -175,13 +175,17 @@ def test_kernel_shared_memory_limits(monkeypatch):
     qmf_chol_solve_limits writes (the card test holds the real values)."""
     calls = []
 
-    class FakeLib:
-        @staticmethod
-        def qmf_chol_solve_limits(dtype, k, out):
+    def fake_limits(dtype):
+        def limits(k, out):
             calls.append((dtype, k))
             out[0], out[1], out[2] = 300 + dtype, 7 + k, 9 * k
             out[3], out[4], out[5] = 290 + dtype, 8, 10 * k
             return 0
+        return limits
+
+    class FakeLib:
+        qmf_chol_solve_limits_f32 = staticmethod(fake_limits(0))
+        qmf_chol_solve_limits_f64 = staticmethod(fake_limits(1))
 
     monkeypatch.setattr(kernels, "load", lambda: FakeLib)
     kernels.chol_solve_limits.cache_clear()
