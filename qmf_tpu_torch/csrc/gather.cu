@@ -30,8 +30,9 @@
 //         global). Each warp has two such tiles, so one tile's reads fly
 //         while the other's store drains. Two ways to read, both kept and
 //         timed: one bulk copy per row, lane t its own row, completing on an
-//         mbarrier that expects the tile's bytes; or 16-byte cp.async by
-//         groups of lanes, as vec groups them. Bulk copies need 16-byte
+//         mbarrier that expects the tile's bytes (variant 2, "tile_bulk" to
+//         the Python side); or 16-byte cp.async by groups of lanes, as vec
+//         groups them (variant 3, "tile"). Bulk copies need 16-byte
 //         sizes and addresses; rows or base pointers that are not multiples
 //         of 16 take the same tile with lane copies in and lane stores out
 //         (width 8, 4 or 2), one tile a warp.
@@ -237,7 +238,7 @@ __device__ __forceinline__ int live_rows(const TileArgs& a, int64_t tile) {
 // kCp16: groups of lanes copy rows in 16-byte pieces, the row's index
 // passed from the lane that holds it; one cp.async group a tile.
 template <typename I, int kRead>
-__device__ __forceinline__ void tile_issue(const TileArgs& a, const I* idx,
+__device__ __forceinline__ void tile_start(const TileArgs& a, const I* idx,
                                            int64_t tile, unsigned char* stage,
                                            unsigned long long* bar,
                                            int lane) {
@@ -320,14 +321,14 @@ gather_tile_kernel(const TileArgs a, const I* __restrict__ idx) {
   // waited for; the stage they go to was last read by the store of the step
   // before, which must have left shared memory by then.
   if (tile < n_tiles)
-    tile_issue<I, kRead>(a, idx, tile, stages, bar, lane);
+    tile_start<I, kRead>(a, idx, tile, stages, bar, lane);
   for (int it = 0; tile < n_tiles; tile += step, ++it) {
     const int st = it & 1;
     const bool more = tile + step < n_tiles;
     if (more) {
       if (lane == 0) bulk_wait_read();
       __syncwarp();
-      tile_issue<I, kRead>(a, idx, tile + step,
+      tile_start<I, kRead>(a, idx, tile + step,
                            stages + (st ^ 1) * a.stage_bytes, bar + (st ^ 1),
                            lane);
     }
@@ -435,8 +436,8 @@ cudaError_t launch_tile(const Args& a, int sms) {
 }
 
 // Variant 2 reads a tile by one bulk copy a row, variant 3 by 16-byte
-// cp.async (the faster on the probes' shapes, by a few percent); below 16
-// bytes of width both take the lane copies.
+// cp.async (level on the probes' shapes, within a few percent either way);
+// below 16 bytes of width both take the lane copies.
 template <typename I>
 cudaError_t launch_tile_width(const Args& a, int width, int sms) {
   switch (width) {

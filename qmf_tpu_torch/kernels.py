@@ -352,8 +352,8 @@ def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
 # The access shapes of csrc/gather.cu, by the number qmf_gather knows them
 # by. "tile" reads its tiles with 16-byte cp.async, "tile_bulk" with one
 # bulk copy a row: the two candidates of the tile kernel, both kept to be
-# timed; "tile" was the faster in four runs of five, by 2-8%.
-GATHER_VARIANTS = {"vec": 0, "warp": 1, "tile_bulk": 2, "tile": 3}
+# timed; they are level: "tile" was the faster in four runs of six.
+GATHER_VARIANTS = {"vec": 0, "warp": 1, "tile": 3, "tile_bulk": 2}
 
 
 def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
@@ -366,8 +366,8 @@ def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
     bytes (16, 8, 4 or 2) and must divide a row's bytes and both base
     pointers. The tile variants also take their plan: ``tile_rows`` rows a
     tile and ``tile_stages`` tiles a warp. ``fill`` (variant "vec" only)
-    gives zero rows for indices that
-    are out of range after one wrap of the negatives. ``l2_window`` pins the
+    gives zero rows for indices that are out of range after one wrap of the
+    negatives. ``l2_window`` pins the
     table in L2 for this launch; :func:`reset_l2_persistence` gives the
     persisting carve-out back afterwards. Does not synchronise. Raises on a
     refused launch, and where the device refuses the window or grants less
@@ -387,14 +387,16 @@ def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
     )
     if err != 0:
         msg = lib.qmf_cuda_error_string(err).decode()
+        tile = (f", {tile_rows} rows x {tile_stages} tiles" if tile_rows
+                else "")
         window = (f", L2 window of {table.shape[0] * row_bytes} bytes, "
                   f"persisting carve-out {granted.value} bytes"
                   if l2_window else "")
         raise RuntimeError(
             f"gather launch failed (R={out.shape[0]}, rows={table.shape[0]}, "
             f"row bytes {row_bytes}, width {width}, {idx.dtype}, {variant}"
-            f"{f', {tile_rows} rows x {tile_stages} tiles' if tile_rows else ''}"
-            f"{', fill' if fill else ''}{window}): CUDA error {err}: {msg}"
+            f"{tile}{', fill' if fill else ''}{window}): CUDA error {err}: "
+            f"{msg}"
         )
 
 

@@ -93,12 +93,13 @@ def tile_plan(row_bytes: int, table_ptr: int, out_ptr: int,
     Where a row's bytes and both base pointers are multiples of 16, a warp
     keeps two tiles: ``"tile"`` reads a tile's rows with 16-byte ``cp.async``
     by groups of lanes (read ``"cp16"``), ``"tile_bulk"`` with one bulk copy a
-    row (``"bulk"``), and either writes the tile with one bulk store. Bulk copies take only
-    16-byte sizes and addresses, so every other shape (k = 1, 3, 30 or 65 in
-    bf16; a table view that starts one element into its storage) gets one
-    tile a warp, lane copies of the widest width that fits into the tile and
-    lane stores out of it (``"lanes"``): the same kernel, dispatched by
-    shape. Raises where the tiles of one warp pass a block's shared memory.
+    row (``"bulk"``), and either writes the tile with one bulk store. Bulk
+    copies take only 16-byte sizes and addresses, so every other shape
+    (k = 1, 3, 30 or 65 in bf16; a table view that starts one element into
+    its storage) gets one tile a warp, lane copies of the widest width that
+    fits into the tile and lane stores out of it (``"lanes"``): the same
+    kernel, dispatched by shape. Raises where the tiles of one warp pass a
+    block's shared memory.
     """
     width = vector_bytes(row_bytes, table_ptr, out_ptr)
     rows = max(1, min(_TILE_MAX_ROWS, _TILE_BYTES // row_bytes))
@@ -154,16 +155,13 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, variant: str = "vec",
     out = torch.empty((flat.shape[0], k), dtype=table.dtype,
                       device=table.device)
     if flat.shape[0]:
-        row_bytes = k * table.element_size()
+        shape = (k * table.element_size(), table.data_ptr(), out.data_ptr())
         if variant in ("tile", "tile_bulk"):
-            plan = tile_plan(row_bytes, table.data_ptr(), out.data_ptr(),
-                             variant)
-            kernels.launch_gather(table, flat, out, variant, fill, l2_window,
-                                  plan.width, plan.rows, plan.stages)
+            plan = tile_plan(*shape, variant)
+            how = (plan.width, plan.rows, plan.stages)
         else:
-            width = vector_bytes(row_bytes, table.data_ptr(), out.data_ptr(),
-                                 variant)
-            kernels.launch_gather(table, flat, out, variant, fill, l2_window,
-                                  width)
+            how = (vector_bytes(*shape, variant),)
+        kernels.launch_gather(table, flat, out, variant, fill, l2_window,
+                              *how)
         launches["fill" if fill else variant] += 1
     return out.reshape(*idx.shape, k)

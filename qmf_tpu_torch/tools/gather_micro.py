@@ -43,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from qmf_tpu_torch import kernels
 from qmf_tpu_torch.ops import gather
 
 K = 64
@@ -51,7 +52,7 @@ DEFAULT_SPECS = ((14336, 64), (11520, 256))
 PAD = 512
 HBM_BPS = 3.35e12  # H100 SXM, NVIDIA's data sheet
 ROUNDS, CALLS = 7, 10
-KERNELS = ("vec", "warp", "tile", "tile_bulk")  # gather_rows' variants
+KERNELS = tuple(kernels.GATHER_VARIANTS)  # gather_rows' variants
 
 
 def card_line() -> str:

@@ -298,6 +298,9 @@ def _gather_inputs(rows, k, n, dtype, idx_dtype, device, fill=False, seed=0):
     return table.to(device), idx.to(device)
 
 
+_GATHER_KERNELS = ["vec", "warp", "tile", "tile_bulk", "fill"]
+
+
 def _check_gather(table, idx, kernel, **kw):
     """Bit for bit against the plain version, one launch counted."""
     before = dict(gather.launches)
@@ -314,7 +317,7 @@ def _check_gather(table, idx, kernel, **kw):
 @pytest.mark.parametrize("k", [1, 3, 30, 64, 65, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float64])
-@pytest.mark.parametrize("kernel", ["vec", "warp", "tile", "tile_bulk", "fill"])
+@pytest.mark.parametrize("kernel", _GATHER_KERNELS)
 def test_gather_matches_plain(cuda, kernel, dtype, k, n, idx_dtype):
     fill = kernel == "fill"
     table, idx = _gather_inputs(997, k, n, dtype, idx_dtype, cuda, fill,
@@ -326,7 +329,7 @@ def test_gather_matches_plain(cuda, kernel, dtype, k, n, idx_dtype):
 @pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 2),
                                          (torch.float32, 4),
                                          (torch.float64, 8)])
-@pytest.mark.parametrize("kernel", ["vec", "warp", "tile", "tile_bulk", "fill"])
+@pytest.mark.parametrize("kernel", _GATHER_KERNELS)
 def test_gather_from_a_misaligned_view(cuda, kernel, dtype, width):
     """A table that starts one element into its storage: 128-, 256- or
     512-byte rows that no 16-byte vector can copy."""
