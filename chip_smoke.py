@@ -40,7 +40,7 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    its plain version on that run's largest user class, checked and timed;
    then each item class of the fused+hot path, and the user and item
    half-epochs of the split, fused and fused+hot paths, timed in turns;
-7. the gather kernels (vec, warp, tile, tile_bulk, fill) against their plain
+7. the gather kernels (vec, warp, tile, fill) against their plain
    version, bit for bit: bf16/f32/f64 x k in {1, 3, 30, 64, 65, 128} x R in
    {1, 255, 513, 2^20} x int32/int64 indices, fill with indices in
    [-rows-3, rows+3), a table view that starts one element into its
@@ -110,7 +110,7 @@ ALPHA, LAM = 40.0, 0.05  # WALSConfig's defaults
 GATHER_KS, GATHER_RS, GATHER_ROWS = (1, 3, 30, 64, 65, 128), \
     (1, 255, 513, 1 << 20), 997
 # The gather kernels: gather_rows' variants, and "vec" with fill.
-GATHER_KERNELS = ("vec", "warp", "tile", "tile_bulk", "fill")
+GATHER_KERNELS = ("vec", "warp", "tile", "fill")
 # Phase 8: users a batch, list length, users held against numpy float64,
 # the score gap below which two items may swap places in f32, and the bound
 # on |f32 score - f64 score| (k = 64 products of factors below ~1).
@@ -334,7 +334,11 @@ def kernel_check(ks=(1, 8, 16, 30, 31, 33, 64, 65, 128),
     # (k, k, B) buffer, no copy in the timed call; solve_spd(layout="t")
     # with its copy, and that copy alone; and the batch-first entry reading
     # the batch-last buffer through its strides, one warp a system (how the
-    # batch-last operand was read before it had its own load)
+    # batch-last operand was read before it had its own load). The two
+    # entries' times for the `kernels` line are five calls back to back
+    # each, as the batch-first entry has always been timed here; the rest,
+    # and both entries again, take turns (medians), so that they compare
+    # with each other under one clock and cache state
     g = torch.Generator(device=dev).manual_seed(SEED)
     m = torch.randn(ML20M_USERS, K_MAIN, K_MAIN, generator=g, device=dev)
     a = torch.baddbmm(torch.eye(K_MAIN, device=dev), m, m.transpose(1, 2),
@@ -344,6 +348,8 @@ def kernel_check(ks=(1, 8, 16, 30, 31, 33, 64, 65, 128),
     a_t, b_t = a.permute(1, 2, 0).contiguous(), b.t().contiguous()
     x_t = torch.empty_like(b_t)
     a_tv, b_tv = a_t.permute(2, 0, 1), b_t.t()
+    nat_ms = _time_ms(lambda: spd_solve.solve_spd(a, b))
+    t_ms = _time_ms(lambda: spd_solve.cholesky_solve_t(a_t, b_t))
     ms = _median_ms({
         "nat": lambda: spd_solve.solve_spd(a, b),
         "t": lambda: spd_solve.cholesky_solve_t(a_t, b_t),
@@ -378,18 +384,19 @@ def kernel_check(ks=(1, 8, 16, 30, 31, 33, 64, 65, 128),
           system_bytes=limits.system_bytes,
           systems_per_block_t=limits.systems_per_block_t,
           system_bytes_t=limits.system_bytes_t,
-          kernel_ms=ms["nat"], kernel_t_entry_ms=ms["t"],
+          kernel_ms=nat_ms, kernel_t_entry_ms=t_ms,
+          kernel_in_turns_ms=ms["nat"], kernel_t_entry_in_turns_ms=ms["t"],
           kernel_t_layout_ms=ms["t_copy"], batch_last_copy_ms=ms["copy"],
           strided_batch_first_entry_ms=ms["strided"],
           plain_ms=ms["plain"], plain_t_ms=ms["plain_t"],
           linalg_solve_ms=ms["library"], linalg_solve_t_ms=ms["library_t"],
           bound_ms=bound_ms, bound_by=bound_by,
           timed_max_abs_err=big_err, timed_max_abs_err_t=big_err_t)
-    return {"ms": ms["nat"], "plain_ms": ms["plain"],
+    return {"ms": nat_ms, "plain_ms": ms["plain"],
             "library_ms": ms["library"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err_f32": worst[f32, "nat"],
-            "t": {"ms": ms["t"], "plain_ms": ms["plain_t"],
+            "t": {"ms": t_ms, "plain_ms": ms["plain_t"],
                   "library_ms": ms["library_t"],
                   "max_abs_err": worst[f32, "t"]}}
 
@@ -1129,7 +1136,7 @@ def gather_check(engine, device: str = "cuda") -> dict:
                          "index_select")).items()},
           timed_vmem=f"({vmem['rows']},64)bf16/int32",
           **{f"vmem_{k}": v for k, v in ms(
-              at_vmem, ("vec", "tile", "tile_bulk", "fill", "plain_fill",
+              at_vmem, ("vec", "tile", "fill", "plain_fill",
                         "index_select")).items()},
           timed_class=f"({col.shape[0]},{col.shape[1]})int64 from "
                       f"({engine.nitems},{K_MAIN})bf16",
@@ -1762,7 +1769,6 @@ def main() -> int:
     }, gather_entry("vec", "benchmarks/gather_micro.py:73", "micro"),
         gather_entry("warp", "benchmarks/gather_micro.py:99", "micro"),
         gather_entry("tile", "benchmarks/gather_micro.py:99", "micro"),
-        gather_entry("tile_bulk", "benchmarks/gather_micro.py:99", "micro"),
         gather_entry("fill", "benchmarks/vmem_gather_micro.py:72", "vmem"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -107,6 +107,11 @@ constexpr int kRegAllocUnit = 256;
 constexpr int kMaxSystemsPerBlock = 32;
 // Row slots per lane: max k = 32 * kMaxSlots (f32 stops at 338).
 constexpr int kMaxSlots = 11;
+// The batch-last entry's systems per block are a multiple of this where one
+// fits: 8 f32 values are one 32-byte sector. At B = 138,493, k = 64 (H100,
+// 700 W) 8 systems a block, three blocks an SM, took 3.41 ms, 16 (one block)
+// 4.15 and 24 (one block) 3.64.
+constexpr int kBatchLastStep = 8;
 
 // Offset of row r in a system's triangle: rows NB m .. NB m + NB-1 each take
 // NB (m + 1) entries. row_off(k) is the whole system.
@@ -419,7 +424,10 @@ __device__ inline void block_load(const BlockWalk w, T* region, const T* a,
 
 // blockDim = (32, systems per block); warp y of block x owns system
 // x blockDim.y + y. ``stride`` is a system's region in shared memory, in
-// elements. Batch-last: the block loads and stores together (block_load),
+// elements, of the batch-last entry (the batch-first entry's is its
+// triangle, row_off(k), and is worked out here: told the same number as an
+// argument the compiler schedules the factor another way, 2.3% slower at
+// k = 64). Batch-last: the block loads and stores together (block_load),
 // and the tail block's warps without a system stay for both barriers.
 // Batch-first: each warp loads its own system through the strides and stores
 // its own x; no block barrier.
@@ -435,7 +443,8 @@ __global__ void chol_solve_kernel(const T* __restrict__ a,
   const int64_t sys0 = int64_t(blockIdx.x) * blockDim.y;
   const int64_t sys = sys0 + threadIdx.y;
   const bool live = sys < batch;
-  T* s = reinterpret_cast<T*>(smem_raw) + threadIdx.y * stride;
+  T* s = reinterpret_cast<T*>(smem_raw) +
+         threadIdx.y * (kBatchLast ? stride : row_off(k));
   T z[KT];
 
   if constexpr (kBatchLast) {
@@ -512,38 +521,34 @@ KernelFn<T> pick_kernel(int kt, bool batch_last,
 }
 
 // The kernel for k (1 <= k <= max_k) and its systems per block, from the
-// registers the compiler gave it. The batch-last entry takes a multiple of 8
-// where one fits, or ``systems`` (> 0) where the caller names the count.
+// registers the compiler gave it. The batch-last entry takes a multiple of
+// kBatchLastStep where one fits.
 template <typename T>
-cudaError_t plan(int k, bool batch_last, int systems, KernelFn<T>* fn,
-                 int* per_block) {
+cudaError_t plan(int k, bool batch_last, KernelFn<T>* fn, int* per_block) {
   *fn = pick_kernel<T>((k + 31) / 32, batch_last,
                        std::make_integer_sequence<int, kMaxSlots>{});
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, *fn);
   if (err != cudaSuccess) return err;
   const size_t sys = system_bytes<T>(k, batch_last);
-  if (systems > 0) {
-    *per_block = blocks_per_sm(systems, sys, attr.numRegs) ? systems : 0;
-    return *per_block ? cudaSuccess : cudaErrorInvalidValue;
-  }
-  *per_block = batch_last ? systems_per_block(sys, attr.numRegs, 8) : 0;
+  *per_block =
+      batch_last ? systems_per_block(sys, attr.numRegs, kBatchLastStep) : 0;
   if (*per_block == 0) *per_block = systems_per_block(sys, attr.numRegs, 1);
   return *per_block > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 template <typename T>
 int launch(const void* a, const void* b, void* x, long long batch, int k,
-           bool batch_last, int systems, long long sa_b, long long sa_r,
-           long long sa_c, long long sb_b, long long sb_r, long long sx_b,
-           long long sx_r, int device, void* stream) {
+           bool batch_last, long long sa_b, long long sa_r, long long sa_c,
+           long long sb_b, long long sb_r, long long sx_b, long long sx_r,
+           int device, void* stream) {
   if (batch <= 0) return int(cudaSuccess);
   if (k <= 0 || k > max_k<T>(batch_last)) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   KernelFn<T> fn;
   int per_block;
-  err = plan<T>(k, batch_last, systems, &fn, &per_block);
+  err = plan<T>(k, batch_last, &fn, &per_block);
   if (err != cudaSuccess) return int(err);
   const int64_t blocks = (batch + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
@@ -571,7 +576,7 @@ cudaError_t limits(int k, bool batch_last, int* out) {
   if (k < 1 || k > out[0]) return cudaSuccess;
   KernelFn<T> fn;
   out[2] = int(system_bytes<T>(k, batch_last));
-  return plan<T>(k, batch_last, 0, &fn, &out[1]);
+  return plan<T>(k, batch_last, &fn, &out[1]);
 }
 
 }  // namespace
@@ -588,10 +593,8 @@ extern "C" {
 // (B, k), each warp loading its own system. qmf_chol_solve_t_<dtype>:
 // batch-last, the same systems and the same strides' meaning, loaded and
 // stored by the block together, which is what a batch stride of 1 (a
-// (k, k, B), b and x (k, B)) wants; ``systems`` > 0 names the systems per
-// block (cudaErrorInvalidValue where that count does not fit), 0 leaves it
-// to the library. Strides are in elements. Both return the cudaError_t of
-// the launch.
+// (k, k, B), b and x (k, B)) wants. Strides are in elements. Both return
+// the cudaError_t of the launch.
 // qmf_chol_solve_limits_<dtype>: out[0..2] of the batch-first entry and
 // out[3..5] of the batch-last one: the largest k; the systems per block at k
 // as a launch on the current device chooses it (0 where k is out of range);
@@ -602,16 +605,16 @@ extern "C" {
                             long long sa_r, long long sa_c, long long sb_b,   \
                             long long sb_r, long long sx_b, long long sx_r,   \
                             int device, void* stream) {                       \
-    return launch<T>(a, b, x, batch, k, false, 0, sa_b, sa_r, sa_c, sb_b,     \
-                     sb_r, sx_b, sx_r, device, stream);                       \
+    return launch<T>(a, b, x, batch, k, false, sa_b, sa_r, sa_c, sb_b, sb_r,  \
+                     sx_b, sx_r, device, stream);                             \
   }                                                                           \
   int qmf_chol_solve_t_##NAME(const void* a, const void* b, void* x,          \
                               long long batch, int k, long long sa_b,         \
                               long long sa_r, long long sa_c, long long sb_b, \
                               long long sb_r, long long sx_b, long long sx_r, \
-                              int systems, int device, void* stream) {        \
-    return launch<T>(a, b, x, batch, k, true, systems, sa_b, sa_r, sa_c,      \
-                     sb_b, sb_r, sx_b, sx_r, device, stream);                 \
+                              int device, void* stream) {                     \
+    return launch<T>(a, b, x, batch, k, true, sa_b, sa_r, sa_c, sb_b, sb_r,   \
+                     sx_b, sx_r, device, stream);                             \
   }                                                                           \
   int qmf_chol_solve_limits_##NAME(int k, int* out) {                         \
     for (int entry = 0; entry < 2; ++entry) {                                 \

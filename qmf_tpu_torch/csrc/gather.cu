@@ -28,14 +28,13 @@
 //         as the output tile, by asynchronous copies; then one thread writes
 //         the whole tile with one bulk store (cp.async.bulk, shared to
 //         global). Each warp has two such tiles, so one tile's reads fly
-//         while the other's store drains. Two ways to read, both kept and
-//         timed: one bulk copy per row, lane t its own row, completing on an
-//         mbarrier that expects the tile's bytes (variant 2, "tile_bulk" to
-//         the Python side); or 16-byte cp.async by groups of lanes, as vec
-//         groups them (variant 3, "tile"). Bulk copies need 16-byte
-//         sizes and addresses; rows or base pointers that are not multiples
-//         of 16 take the same tile with lane copies in and lane stores out
-//         (width 8, 4 or 2), one tile a warp.
+//         while the other's store drains. The reads are 16-byte cp.async by
+//         groups of lanes, as vec groups them (one bulk copy a row,
+//         completing on an mbarrier, was tried beside it and was level with
+//         it, so the read that needs no barrier stayed). Bulk stores need
+//         16-byte sizes and addresses; rows or base pointers that are not
+//         multiples of 16 take the same tile with lane copies in and lane
+//         stores out (width 8, 4 or 2), one tile a warp.
 //
 // `fill` (vec only) is jnp.take's fill_value=0 rule: a negative index wraps
 // once, then an index outside [0, table_rows) gives a zero row. Without it an
@@ -127,53 +126,6 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Makes the initialised barriers known to the copy unit.
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// The one arrival of a phase, which also expects `bytes` of copies.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until the phase of parity `parity` is complete.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device to
-// shared memory; counts on `bar` when they have landed.
-__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // `bytes` from shared to device memory, as a bulk group of this thread.
 __device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
                                            unsigned bytes) {
@@ -217,7 +169,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-enum TileRead { kBulkRows = 0, kCp16 = 1, kLanes = 2 };
+enum TileRead { kCp16 = 0, kLanes = 1 };
 
 struct TileArgs {
   const unsigned char* table;
@@ -233,39 +185,29 @@ __device__ __forceinline__ int live_rows(const TileArgs& a, int64_t tile) {
   return left < a.tile_rows ? int(left) : a.tile_rows;
 }
 
-// Starts the reads of one tile into `stage`. kBulkRows: lane 0 arms the
-// barrier with the live rows' bytes, then lane t copies row t whole.
-// kCp16: groups of lanes copy rows in 16-byte pieces, the row's index
-// passed from the lane that holds it; one cp.async group a tile.
-template <typename I, int kRead>
+// Starts the reads of one tile into `stage`: groups of lanes copy rows in
+// 16-byte pieces, the row's index passed from the lane that holds it; one
+// cp.async group a tile.
+template <typename I>
 __device__ __forceinline__ void tile_start(const TileArgs& a, const I* idx,
                                            int64_t tile, unsigned char* stage,
-                                           unsigned long long* bar,
                                            int lane) {
   const int live = live_rows(a, tile);
   long long mine = 0;
   if (lane < live) mine = load_index(idx, tile * a.tile_rows + lane);
-  if constexpr (kRead == kBulkRows) {
-    if (lane == 0) mbar_expect(bar, unsigned(live) * unsigned(a.row_bytes));
-    __syncwarp();
-    if (lane < live)
-      bulk_load(stage + lane * a.row_bytes, a.table + mine * a.row_bytes,
-                unsigned(a.row_bytes), bar);
-  } else {
-    const int group = 1 << a.group_shift, rows_a_step = 32 >> a.group_shift;
-    const int sub = lane & (group - 1), vecs = a.row_bytes / 16;
-    for (int row0 = 0; row0 < live; row0 += rows_a_step) {
-      const int row = row0 + (lane >> a.group_shift);
-      const long long src = __shfl_sync(0xffffffffu, mine, row & 31);
-      if (row < live) {
-        const unsigned char* from = a.table + src * a.row_bytes;
-        unsigned char* to = stage + row * a.row_bytes;
-        for (int c = sub; c < vecs; c += group)
-          cp_async16(to + 16 * c, from + 16 * c);
-      }
+  const int group = 1 << a.group_shift, rows_a_step = 32 >> a.group_shift;
+  const int sub = lane & (group - 1), vecs = a.row_bytes / 16;
+  for (int row0 = 0; row0 < live; row0 += rows_a_step) {
+    const int row = row0 + (lane >> a.group_shift);
+    const long long src = __shfl_sync(0xffffffffu, mine, row & 31);
+    if (row < live) {
+      const unsigned char* from = a.table + src * a.row_bytes;
+      unsigned char* to = stage + row * a.row_bytes;
+      for (int c = sub; c < vecs; c += group)
+        cp_async16(to + 16 * c, from + 16 * c);
     }
-    cp_async_commit();
   }
+  cp_async_commit();
 }
 
 // One warp per tile and step, kTileStages tiles a warp in shared memory.
@@ -274,7 +216,6 @@ template <typename V, typename I, int kRead>
 __global__ void __launch_bounds__(32 * kTileWarps)
 gather_tile_kernel(const TileArgs a, const I* __restrict__ idx) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  __shared__ __align__(8) unsigned long long bars[kTileWarps][kTileStages];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t warps = blockDim.x >> 5;
   const int64_t n_tiles = (a.n_out + a.tile_rows - 1) / a.tile_rows;
@@ -308,33 +249,18 @@ gather_tile_kernel(const TileArgs a, const I* __restrict__ idx) {
 
   unsigned char* stages =
       tile_smem + size_t(warp) * kTileStages * a.stage_bytes;
-  unsigned long long* bar = bars[warp];
-  if constexpr (kRead == kBulkRows) {
-    if (lane == 0) {
-      for (int st = 0; st < kTileStages; ++st) mbar_init(bar + st);
-      mbar_init_fence();
-    }
-    __syncwarp();
-  }
-  // Step `it` of this warp uses stage it & 1, whose barrier is then in its
-  // (it >> 1)-th phase. The next tile's reads start before this tile's are
-  // waited for; the stage they go to was last read by the store of the step
-  // before, which must have left shared memory by then.
-  if (tile < n_tiles)
-    tile_start<I, kRead>(a, idx, tile, stages, bar, lane);
+  // Step `it` of this warp uses stage it & 1. The next tile's reads start
+  // before this tile's are waited for; the stage they go to was last read by
+  // the store of the step before, which must have left shared memory by then.
+  if (tile < n_tiles) tile_start(a, idx, tile, stages, lane);
   for (int it = 0; tile < n_tiles; tile += step, ++it) {
     const int st = it & 1;
     const bool more = tile + step < n_tiles;
     if (more) {
       if (lane == 0) bulk_wait_read();
       __syncwarp();
-      tile_start<I, kRead>(a, idx, tile + step,
-                           stages + (st ^ 1) * a.stage_bytes, bar + (st ^ 1),
-                           lane);
-    }
-    if constexpr (kRead == kBulkRows) {
-      mbar_wait(bar + st, unsigned(it >> 1) & 1u);
-    } else if (more) {
+      tile_start(a, idx, tile + step, stages + (st ^ 1) * a.stage_bytes,
+                 lane);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -354,7 +280,7 @@ struct Args {
   const void* idx;
   void* out;
   int64_t n_out, table_rows, row_bytes;
-  int variant, fill;  // variant 0 vec, 1 warp, 2 and 3 tile
+  int variant, fill;  // variant 0 vec, 1 warp, 2 tile
   int tile_rows, tile_stages;
   cudaStream_t stream;
 };
@@ -435,15 +361,12 @@ cudaError_t launch_tile(const Args& a, int sms) {
   return cudaGetLastError();
 }
 
-// Variant 2 reads a tile by one bulk copy a row, variant 3 by 16-byte
-// cp.async (level on the probes' shapes, within a few percent either way);
-// below 16 bytes of width both take the lane copies.
+// 16-byte rows and pointers take the asynchronous reads and the bulk store;
+// narrower widths the lane copies.
 template <typename I>
 cudaError_t launch_tile_width(const Args& a, int width, int sms) {
   switch (width) {
-    case 16:
-      return a.variant == 2 ? launch_tile<uint4, I, kBulkRows>(a, sms)
-                            : launch_tile<uint4, I, kCp16>(a, sms);
+    case 16: return launch_tile<uint4, I, kCp16>(a, sms);
     case 8: return launch_tile<uint2, I, kLanes>(a, sms);
     case 4: return launch_tile<unsigned int, I, kLanes>(a, sms);
     default: return launch_tile<unsigned short, I, kLanes>(a, sms);
@@ -501,9 +424,9 @@ extern "C" {
 // out[r] = table[idx[r]] for r < n_out, rows of row_bytes bytes copied in
 // vectors of `width` bytes (16, 8, 4 or 2: it must divide row_bytes and both
 // base pointers). idx is int32 (idx64 = 0) or int64. variant 0 vec, 1 warp,
-// 2 tile with bulk-copy reads, 3 tile with 16-byte cp.async reads (both:
-// tile_rows <= 32 rows a tile, tile_stages tiles a warp: 2, or 1 where width
-// is below 16 and lanes copy); fill (vec only) zero-fills out-of-range rows.
+// 2 tile (tile_rows <= 32 rows a tile, tile_stages tiles a warp: 2, or 1
+// where width is below 16 and lanes copy); fill (vec only) zero-fills
+// out-of-range rows.
 // With l2_window the table is pinned in L2 for this launch and *l2_granted
 // gets the persisting carve-out in bytes. Returns the cudaError_t of the
 // first call that failed.
@@ -514,7 +437,7 @@ int qmf_gather(const void* table, const void* idx, void* out, long long n_out,
                long long* l2_granted) {
   if (n_out <= 0) return int(cudaSuccess);
   if (row_bytes <= 0 || table_rows <= 0 || n_out > 0x7fffffffLL ||
-      variant < 0 || variant > 3 || (variant != 0 && fill))
+      variant < 0 || variant > 2 || (variant != 0 && fill))
     return int(cudaErrorInvalidValue);
   if (width != 16 && width != 8 && width != 4 && width != 2)
     return int(cudaErrorInvalidValue);
@@ -535,7 +458,7 @@ int qmf_gather(const void* table, const void* idx, void* out, long long n_out,
                     l2_granted);
     if (err != cudaSuccess) return int(err);
   }
-  if (variant >= 2) {
+  if (variant == 2) {
     err = idx64 ? launch_tile_width<long long>(a, width, sms)
                 : launch_tile_width<int>(a, width, sms);
   } else {

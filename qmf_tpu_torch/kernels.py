@@ -137,15 +137,11 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name in ("qmf_chol_solve_f32", "qmf_chol_solve_f64"):
+        for name in ("qmf_chol_solve_f32", "qmf_chol_solve_f64",
+                     "qmf_chol_solve_t_f32", "qmf_chol_solve_t_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, ll, ci, ll, ll, ll, ll, ll, ll, ll,
                            ci, vp]
-            fn.restype = ci
-        for name in ("qmf_chol_solve_t_f32", "qmf_chol_solve_t_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp, ll, ci, ll, ll, ll, ll, ll, ll, ll,
-                           ci, ci, vp]
             fn.restype = ci
         for name in ("qmf_build_solve_f32", "qmf_build_solve_bf16"):
             fn = getattr(lib, name)
@@ -235,16 +231,15 @@ def launch_chol_solve(a: torch.Tensor, b: torch.Tensor,
 
 
 def launch_chol_solve_t(a_t: torch.Tensor, b_t: torch.Tensor,
-                        x_t: torch.Tensor, systems: int = 0) -> None:
+                        x_t: torch.Tensor) -> None:
     """Launch csrc/chol_solve.cu's batch-last entry on the current stream:
     x_t[:, i] = A_t[:, :, i]^-1 b_t[:, i].
 
     a_t (k, k, B), b_t (k, B) and x_t (k, B) are CUDA tensors of one float
     dtype, read and written where they lie: a block loads its systems
     together, neighbours along B side by side, which suits a batch stride
-    of 1 (other strides are still right). ``systems`` > 0 names the systems
-    per block, for measuring; 0 leaves the count to the library. Does not
-    synchronise. Raises on a refused launch.
+    of 1 (other strides are still right). Does not synchronise. Raises on a
+    refused launch.
     """
     lib = load()
     fn = {torch.float32: lib.qmf_chol_solve_t_f32,
@@ -254,7 +249,7 @@ def launch_chol_solve_t(a_t: torch.Tensor, b_t: torch.Tensor,
     (sb_r, sb_b), (sx_r, sx_b) = b_t.stride(), x_t.stride()
     err = fn(
         a_t.data_ptr(), b_t.data_ptr(), x_t.data_ptr(), bsz, k,
-        sa_b, sa_r, sa_c, sb_b, sb_r, sx_b, sx_r, systems,
+        sa_b, sa_r, sa_c, sb_b, sb_r, sx_b, sx_r,
         a_t.device.index if a_t.device.index is not None else 0,
         torch.cuda.current_stream(a_t.device).cuda_stream,
     )
@@ -262,7 +257,7 @@ def launch_chol_solve_t(a_t: torch.Tensor, b_t: torch.Tensor,
         msg = lib.qmf_cuda_error_string(err).decode()
         raise RuntimeError(
             f"chol_solve batch-last launch failed (B={bsz}, k={k}, "
-            f"{a_t.dtype}, systems per block {systems or 'auto'}): "
+            f"{a_t.dtype}): "
             f"CUDA error {err}: {msg}"
         )
 
@@ -350,10 +345,8 @@ def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
 
 
 # The access shapes of csrc/gather.cu, by the number qmf_gather knows them
-# by. "tile" reads its tiles with 16-byte cp.async, "tile_bulk" with one
-# bulk copy a row: the two candidates of the tile kernel, both kept to be
-# timed; they are level: "tile" was the faster in four runs of six.
-GATHER_VARIANTS = {"vec": 0, "warp": 1, "tile": 3, "tile_bulk": 2}
+# by.
+GATHER_VARIANTS = {"vec": 0, "warp": 1, "tile": 2}
 
 
 def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
@@ -364,7 +357,7 @@ def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
     table (rows, k) and out (R, k) contiguous CUDA tensors of one dtype, idx
     (R,) int32 or int64 on the same device. ``width`` is the vector width in
     bytes (16, 8, 4 or 2) and must divide a row's bytes and both base
-    pointers. The tile variants also take their plan: ``tile_rows`` rows a
+    pointers. Variant "tile" also takes its plan: ``tile_rows`` rows a
     tile and ``tile_stages`` tiles a warp. ``fill`` (variant "vec" only)
     gives zero rows for indices that are out of range after one wrap of the
     negatives. ``l2_window`` pins the

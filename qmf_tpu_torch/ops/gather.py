@@ -14,10 +14,10 @@ qmf_tpu_torch/kernels.py) and raises if it cannot; on a CPU tensor it runs
 copy: ``"vec"`` (a group of lanes per row, the widest vectors that fit),
 ``"warp"`` (a warp per row) and ``"tile"`` (a warp per tile of consecutive
 output rows, staged through shared memory by asynchronous copies and
-written by one bulk store; ``"tile_bulk"`` is the same with another way to
-read, see :func:`tile_plan`). ``fill`` adds ``jnp.take``'s ``fill_value=0``
-rule to ``"vec"``; without it an out-of-range index is the caller's error
-and nothing checks it on the device.
+written by one bulk store, see :func:`tile_plan`). ``fill`` adds
+``jnp.take``'s ``fill_value=0`` rule to ``"vec"``; without it an
+out-of-range index is the caller's error and nothing checks it on the
+device.
 
 ``launches`` counts kernel launches by kernel (the variants, and ``"fill"``);
 CPU calls and empty index arrays do not count.
@@ -77,40 +77,33 @@ def vector_bytes(row_bytes: int, table_ptr: int, out_ptr: int,
 class TilePlan(NamedTuple):
     """How a ``"tile"`` launch moves its rows: ``rows`` consecutive output
     rows a tile, ``stages`` tiles a warp in shared memory, copies of
-    ``width`` bytes, and how a tile is read and written (``read``)."""
+    ``width`` bytes."""
 
     rows: int
     stages: int
     width: int
-    read: str
 
 
-def tile_plan(row_bytes: int, table_ptr: int, out_ptr: int,
-              variant: str = "tile") -> TilePlan:
-    """The plan of a ``"tile"`` or ``"tile_bulk"`` launch, by shape.
+def tile_plan(row_bytes: int, table_ptr: int, out_ptr: int) -> TilePlan:
+    """The plan of a ``"tile"`` launch, by shape.
 
     A tile is as many rows as come to 4096 bytes, at least 1 and at most 32.
     Where a row's bytes and both base pointers are multiples of 16, a warp
-    keeps two tiles: ``"tile"`` reads a tile's rows with 16-byte ``cp.async``
-    by groups of lanes (read ``"cp16"``), ``"tile_bulk"`` with one bulk copy a
-    row (``"bulk"``), and either writes the tile with one bulk store. Bulk
-    copies take only 16-byte sizes and addresses, so every other shape
+    keeps two tiles, reads a tile's rows with 16-byte ``cp.async`` by groups
+    of lanes and writes the tile with one bulk store. Bulk
+    stores take only 16-byte sizes and addresses, so every other shape
     (k = 1, 3, 30 or 65 in bf16; a table view that starts one element into
     its storage) gets one tile a warp, lane copies of the widest width that
-    fits into the tile and lane stores out of it (``"lanes"``): the same
+    fits into the tile and lane stores out of it: the same
     kernel, dispatched by shape. Raises where the tiles of one warp pass a
     block's shared memory.
     """
     width = vector_bytes(row_bytes, table_ptr, out_ptr)
     rows = max(1, min(_TILE_MAX_ROWS, _TILE_BYTES // row_bytes))
-    if width == 16:
-        plan = TilePlan(rows, 2, 16, "bulk" if variant == "tile_bulk"
-                        else "cp16")
-    else:
-        plan = TilePlan(rows, 1, width, "lanes")
+    plan = TilePlan(rows, 2 if width == 16 else 1, width)
     if plan.stages * plan.rows * row_bytes > kernels.MAX_SMEM_BYTES:
         raise ValueError(
-            f"rows of {row_bytes} bytes are too long for the tile variants: "
+            f"rows of {row_bytes} bytes are too long for variant \"tile\": "
             f"{plan.stages} tiles of them pass {kernels.MAX_SMEM_BYTES} "
             f"bytes of shared memory")
     return plan
@@ -156,8 +149,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, variant: str = "vec",
                       device=table.device)
     if flat.shape[0]:
         shape = (k * table.element_size(), table.data_ptr(), out.data_ptr())
-        if variant in ("tile", "tile_bulk"):
-            plan = tile_plan(*shape, variant)
+        if variant == "tile":
+            plan = tile_plan(*shape)
             how = (plan.width, plan.rows, plan.stages)
         else:
             how = (vector_bytes(*shape, variant),)

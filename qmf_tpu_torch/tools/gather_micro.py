@@ -20,7 +20,6 @@ times the ways to write that gather on one class shape:
   cuda_warp the same, variant "warp"
   cuda_tile the same, variant "tile" (tiles of 32 rows through shared
             memory, read by 16-byte cp.async, written by one bulk store)
-  cuda_tile_bulk  the same, variant "tile_bulk" (read by one bulk copy a row)
 
 Each line gives the median ms (CUDA events around 10 calls, 7 rounds, the
 idioms taking turns, after one warm-up call each), ns per row, GB/s of bf16

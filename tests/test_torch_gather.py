@@ -58,7 +58,7 @@ def _port(table, idx, **kw):
                               torch.from_numpy(idx), **kw)
 
 
-VARIANTS = ["vec", "warp", "tile", "tile_bulk"]
+VARIANTS = ["vec", "warp", "tile"]
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -179,7 +179,7 @@ def test_wrapper_rejects(call, match):
     with pytest.raises(ValueError, match=match):
         call(torch.from_numpy(table), torch.from_numpy(idx))
     assert gather.launches == {"vec": 0, "warp": 0, "tile": 0,
-                               "tile_bulk": 0, "fill": 0}  # CPU calls
+                               "fill": 0}  # CPU calls
 
 
 # (row bytes, table pointer, out pointer) -> width for "vec" and "warp":
@@ -203,35 +203,45 @@ def test_vector_bytes(row_bytes, table_ptr, out_ptr, vec, warp):
 
 
 # (row bytes, table pointer, out pointer) -> (rows a tile, tiles a warp,
-# copy width, how "tile" reads): 4096 bytes a tile, at most 32 rows; two
-# tiles and asynchronous copies where everything is a multiple of 16, else
-# one tile and lane copies of the widest width that fits.
+# copy width): 4096 bytes a tile, at most 32 rows; two tiles, asynchronous
+# 16-byte copies in and a bulk store out where everything is a multiple of
+# 16, else one tile and lane copies of the widest width that fits.
 @pytest.mark.parametrize("row_bytes,table_ptr,out_ptr,want", [
-    (128, 0x1000, 0x2000, (32, 2, 16, "cp16")),  # k = 64 bf16
-    (512, 0x1000, 0x2000, (8, 2, 16, "cp16")),  # k = 64 f64
-    (60, 0x1000, 0x2000, (32, 1, 4, "lanes")),  # k = 30 bf16
-    (2, 0x1000, 0x2000, (32, 1, 2, "lanes")),  # k = 1 bf16
-    (128, 0x1002, 0x2000, (32, 1, 2, "lanes")),  # 2 bytes off a boundary
-    (128, 0x1000, 0x2008, (32, 1, 8, "lanes")),  # the output 8 off
-    (240, 0x1000, 0x2000, (17, 2, 16, "cp16")),  # k = 30 f64: 4080 B a tile
-    (1024, 0x1000, 0x2000, (4, 2, 16, "cp16")),  # k = 128 f64
-    (8192, 0x1000, 0x2000, (1, 2, 16, "cp16")),  # a row above a tile
-    (130, 0x1000, 0x2000, (31, 1, 2, "lanes")),  # k = 65 bf16
+    (128, 0x1000, 0x2000, (32, 2, 16)),  # k = 64 bf16
+    (512, 0x1000, 0x2000, (8, 2, 16)),  # k = 64 f64
+    (60, 0x1000, 0x2000, (32, 1, 4)),  # k = 30 bf16
+    (2, 0x1000, 0x2000, (32, 1, 2)),  # k = 1 bf16
+    (128, 0x1002, 0x2000, (32, 1, 2)),  # 2 bytes off a boundary
+    (128, 0x1000, 0x2008, (32, 1, 8)),  # the output 8 off
+    (240, 0x1000, 0x2000, (17, 2, 16)),  # k = 30 f64: 4080 B a tile
+    (1024, 0x1000, 0x2000, (4, 2, 16)),  # k = 128 f64
+    (8192, 0x1000, 0x2000, (1, 2, 16)),  # a row above a tile
+    (130, 0x1000, 0x2000, (31, 1, 2)),  # k = 65 bf16
+    (256, 0x1000, 0x2000, (16, 2, 16)),  # k = 64 f32
+    (120, 0x1000, 0x2000, (32, 1, 8)),  # k = 30 f32
+    (4096, 0x1000, 0x2000, (1, 2, 16)),  # a row that is a tile
+    (48, 0x1000, 0x2000, (32, 2, 16)),  # k = 6 f64: 32 rows are 1536 B
 ])
 def test_tile_plan(row_bytes, table_ptr, out_ptr, want):
     assert gather.tile_plan(row_bytes, table_ptr, out_ptr) == want
-    other = gather.tile_plan(row_bytes, table_ptr, out_ptr, "tile_bulk")
-    assert other[:3] == want[:3]
-    assert other.read == ("bulk" if want[3] == "cp16" else "lanes")
     with pytest.raises(ValueError, match="aligned"):
         gather.tile_plan(row_bytes, table_ptr + 1, out_ptr)
 
 
-def test_tile_plan_rejects_rows_above_shared_memory():
-    assert gather.tile_plan(116224, 0, 0).rows == 1  # two of them just fit
+# The tiles of one warp are all the shared memory the kernel declares, so
+# they may fill a block's 232448 bytes to the last one.
+@pytest.mark.parametrize("row_bytes,out_ptr,want", [
+    (116224, 0, (1, 2, 16)),  # two tiles of one row just fit
+    (116240, 0, None),
+    (232440, 8, (1, 1, 8)),  # one tile, the widest row of 8-byte copies
+    (232456, 8, None),
+])
+def test_tile_plan_rejects_rows_above_shared_memory(row_bytes, out_ptr, want):
+    if want is not None:
+        assert gather.tile_plan(row_bytes, 0, out_ptr) == want
+        return
     with pytest.raises(ValueError, match="shared memory"):
-        gather.tile_plan(116240, 0, 0)
-    assert gather.tile_plan(232440, 0, 8) == (1, 1, 8, "lanes")
+        gather.tile_plan(row_bytes, 0, out_ptr)
 
 
 def test_probe_inputs_match_the_originals(probes):

@@ -298,7 +298,7 @@ def _gather_inputs(rows, k, n, dtype, idx_dtype, device, fill=False, seed=0):
     return table.to(device), idx.to(device)
 
 
-_GATHER_KERNELS = ["vec", "warp", "tile", "tile_bulk", "fill"]
+_GATHER_KERNELS = ["vec", "warp", "tile", "fill"]
 
 
 def _check_gather(table, idx, kernel, **kw):
@@ -345,21 +345,39 @@ def test_gather_from_a_misaligned_view(cuda, kernel, dtype, width):
                   variant="vec" if fill else kernel)
 
 
-@pytest.mark.parametrize("kernel", ["tile", "tile_bulk"])
 @pytest.mark.parametrize("n", [31, 32, 33, 3 * 32 * 8 * 132 * 3 + 5])
-def test_gather_tile_tails_and_stage_reuse(cuda, kernel, n):
+def test_gather_tile_tails_and_stage_reuse(cuda, n):
     """Index counts around one tile of 32 rows, and three tiles for every
     warp of a full grid (132 SMs x 3 blocks x 8 warps), so that each reuses
     a stage, with a short last tile;
     int64 indices; a row longer than a tile."""
     table, idx = _gather_inputs(997, 64, n, torch.bfloat16, torch.int64, cuda,
                                 seed=n)
-    assert gather.tile_plan(128, table.data_ptr(), 0, kernel).rows == 32
-    _check_gather(table, idx, kernel, variant=kernel)
+    assert gather.tile_plan(128, table.data_ptr(), 0).rows == 32
+    _check_gather(table, idx, "tile", variant="tile")
     wide, idx = _gather_inputs(50, 1280, min(n, 4099), torch.float64,
                                torch.int32, cuda, seed=n)
-    assert gather.tile_plan(10240, wide.data_ptr(), 0, kernel).rows == 1
-    _check_gather(wide, idx, kernel, variant=kernel)
+    assert gather.tile_plan(10240, wide.data_ptr(), 0).rows == 1
+    _check_gather(wide, idx, "tile", variant="tile")
+
+
+@pytest.mark.parametrize("k,offset,want", [
+    (14528, 0, (1, 2, 16)),  # two tiles of one 116224-byte row
+    (29055, 1, (1, 1, 8)),  # one tile of 232440 bytes, copied by lanes
+])
+def test_gather_tile_fills_a_blocks_shared_memory(cuda, k, offset, want):
+    """The longest rows the plan accepts launch: the tiles of one warp are
+    all of a block's shared memory, to the byte."""
+    g = torch.Generator(device="cpu").manual_seed(k)
+    flat = torch.randn(offset + 3 * k, generator=g, dtype=torch.float64)
+    table = flat.to(cuda)[offset:].view(3, k)
+    idx = torch.tensor([2, 0, 1, 1, 2], device=cuda)
+    assert gather.tile_plan(8 * k, table.data_ptr(), 8 * offset) == want
+    got = gather.gather_rows(table, idx, "tile")
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.gather_rows_plain(table, idx))
+    with pytest.raises(ValueError, match="shared memory"):
+        gather.tile_plan(8 * (k + 2), table.data_ptr(), 0)
 
 
 def test_gather_l2_window_sets_and_resets(cuda):

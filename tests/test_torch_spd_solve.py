@@ -214,3 +214,18 @@ def test_chol_phases_cuts_each_phase(k):
         assert start in full and start not in variants[name]
         assert len(variants[name]) < len(full)
     assert "cp_async_wait_all();" in variants["load_store"]
+
+
+@pytest.mark.parametrize("step", [8, 16, 24])
+def test_chol_phases_sets_the_batch_last_step(step):
+    """``--systems S`` builds every copy with the source's kBatchLastStep
+    set to S; 0 leaves the source's own."""
+    from qmf_tpu_torch.tools import chol_phases
+
+    own = chol_phases.variant_sources(64)
+    for name, text in chol_phases.variant_sources(64, step).items():
+        assert f"constexpr int kBatchLastStep = {step};" in text
+        assert text.count("kBatchLastStep =") == 1
+        assert chol_phases._STEP in own[name]
+    with pytest.raises(RuntimeError, match="no longer declares"):
+        chol_phases._set("int x;", "a.cu", chol_phases._STEP, step)
