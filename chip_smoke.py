@@ -71,7 +71,28 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    epoch's packed stream decoded as the SGD loop decodes it, every real
    row checked: no negative chosen before the last round is a positive of
    its user; then (9p) one epoch under torch.profiler: wall ms beside
-   device ms, launches, the largest kernels by device time.
+   device ms, launches, the largest kernels by device time, the host's ops
+   by their own CPU time.
+10. the sharded engines (qmf_tpu_torch/parallel): (a) ShardedWALSEngine
+   over NCCL at world 1 on phase 4's data, the split path and fused with
+   hot_width = 1024, 2 epochs each, against epochs 1-2 of phases 4 and 6
+   (bit-for-bit equality printed, normwise error held at 5x phase 2's f32
+   bound), with epoch seconds, launches and collective bytes per
+   half-epoch, and its half-epochs with and without the mesh in turns;
+   (b) two gloo ranks sharing the card (NCCL takes one card a rank),
+   started by parallel.launch.spawn and reading files the parent wrote:
+   WALS at ml20m (phase 4's configuration, 3 epochs: each rank's launches
+   and epoch seconds, test AUC within 2e-3 of phase 4's, factors normwise
+   within twice the spread between phases 6 and 4, and at least 5x phase
+   2's f32 bound), WALS at phase 3's ml100k in float64 and BPR at phase
+   9b's small size in float64, 3 epochs each, within 1e-9 of the
+   single-device engines on the card; and which
+   collectives gloo runs on CUDA tensors; (c) ShardedBPREngine over NCCL at
+   world 1 with phase 9d's configuration, one warm-up and one timed epoch,
+   updates/s beside 9d's, then one epoch under torch.profiler as 9p; (d)
+   the wals CLI under torchrun's environment at world 1, --solver=fused
+   on phase 3's files: build_solve launches, AUC against phase 6's CLI run.
+   Then the launches of each kernel on the sharded paths.
 
 Then the run's seconds, a JSON line describing each kernel (times,
 launches, errors, and the bound: the larger of the bytes it must move over
@@ -168,6 +189,18 @@ def _normwise_err(got, want) -> tuple[float, float]:
     diff = (got - want).abs()
     scale = torch.clamp(want.abs().amax(dim=1, keepdim=True), min=1.0)
     return float(diff.max()), float((diff / scale).max())
+
+
+def _recorder(engine, epochs: list):
+    """A WALSEngine progress_cb: appends (epoch, loss, seconds, (user,
+    item) factors on the host) to ``epochs``, so phase 10 can hold a
+    2-epoch run against epoch 2 of a longer one."""
+
+    def record(epoch, loss, dt):
+        epochs.append((epoch, loss, dt, (engine.user_factors.cpu(),
+                                         engine.item_factors.cpu())))
+
+    return record
 
 
 def _line(phase: str, t0: float, **numbers) -> None:
@@ -543,13 +576,13 @@ def model_scale(data, t_data: float, device: str = "cuda",
     torch.cuda.synchronize()
     t_init = time.time() - t1
     epochs = []
-    engine.progress_cb = lambda e, loss, dt: epochs.append((e, loss, dt))
+    engine.progress_cb = _recorder(engine, epochs)
     n_classes = len(engine._user_classes) + len(engine._item_classes)
     spd_solve.launches = 0
     engine.optimize()
     launches = spd_solve.launches
     peak = torch.cuda.max_memory_allocated()
-    losses = [loss for _, loss, _ in epochs]
+    losses = [loss for _, loss, _, _ in epochs]
     if launches != n_classes * nepochs:
         raise AssertionError(f"{launches} launches, expected "
                              f"{n_classes} classes x {nepochs} epochs")
@@ -584,14 +617,15 @@ def model_scale(data, t_data: float, device: str = "cuda",
     _line("4 ml20m", t0, users=engine.nusers, items=engine.nitems,
           ratings=len(train), k=K_MAIN, data_s=round(t_data, 3),
           init_s=round(t_init, 3),
-          epoch_s=[round(dt, 4) for _, _, dt in epochs],
+          epoch_s=[round(dt, 4) for _, _, dt, _ in epochs],
           losses=[f"{x:.10g}" for x in losses], test_auc=auc,
           classes=n_classes, launches=launches,
           launches_per_epoch=launches / nepochs, peak_bytes=peak,
           class_rows=a.shape[0], class_max_abs_err=err, class_normwise_err=scaled,
           class_max_abs_x=scale)
     return {"launches": launches, "max_abs_err": err, "engine": engine,
-            "auc": auc, "epoch_s": [dt for _, _, dt in epochs]}
+            "auc": auc, "epoch_s": [dt for _, _, dt, _ in epochs],
+            "epochs": epochs}
 
 
 def _bs_inputs(n: int, d: int, k: int, h: int, dtype, seed: int,
@@ -818,19 +852,20 @@ def _cli_fused(preset: str = "ml100k", device: str = "cuda") -> tuple:
 def _half_epoch_ms(paths: dict) -> dict:
     """Median ms of the user and item half-epochs (als_ops._solve_side on
     an engine's classes and trained factors) of each path, name ->
-    (engine, solver), the paths taking turns."""
+    (engine, solver, mesh or None), the paths taking turns."""
     from qmf_tpu_torch.ops import als_ops
 
     fns = {}
-    for name, (engine, solver) in paths.items():
+    for name, (engine, solver, mesh) in paths.items():
         cfg = engine.config
         for side in ("user", "item"):
             classes, chunks, hot, y, n = _side(engine, side)
             fns[f"{name}_{side}"] = (
                 lambda y=y, c=classes, ch=chunks, n=n, hot=hot, s=solver,
-                cfg=cfg: als_ops._solve_side(
+                cfg=cfg, m=mesh: als_ops._solve_side(
                     y, c, ch, n, cfg.confidence_weight,
-                    cfg.regularization_lambda, s, cfg.matmul_precision, hot))
+                    cfg.regularization_lambda, s, cfg.matmul_precision, hot,
+                    m))
     return _median_ms(fns, reps=3)
 
 
@@ -883,7 +918,7 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
     torch.cuda.synchronize()
     t_init = time.time() - t1
     epochs = []
-    engine.progress_cb = lambda e, loss, dt: epochs.append((e, loss, dt))
+    engine.progress_cb = _recorder(engine, epochs)
     chunks = sum(-(-c[1].shape[0] // ch) for c, ch in zip(
         engine._user_classes + engine._item_classes,
         engine._user_chunks + engine._item_chunks))
@@ -893,7 +928,7 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
     counts = (build_solve.launches, build_solve.launches_hot,
               spd_solve.launches)
     peak = torch.cuda.max_memory_allocated()
-    losses = [loss for _, loss, _ in epochs]
+    losses = [loss for _, loss, _, _ in epochs]
     if counts != (0, chunks * nepochs, 0):
         raise AssertionError(
             f"launches (build_solve, build_solve_hot, chol_solve) = "
@@ -918,13 +953,13 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
     })
     bound_ms, bound_by = _bs_bound(args)
     item_classes = _item_class_ms(engine)
-    half = _half_epoch_ms({"split": (split_engine, "kernel"),
-                           "fused": (split_engine, "fused"),
-                           "fused_hot": (engine, "fused")})
+    half = _half_epoch_ms({"split": (split_engine, "kernel", None),
+                           "fused": (split_engine, "fused", None),
+                           "fused_hot": (engine, "fused", None)})
     _line("6 fused", t0, cli_preset="ml100k", cli_launches=cli_launches,
           cli_test_auc=cli_auc, users=engine.nusers, items=engine.nitems,
           k=K_MAIN, hot_width=HOT_WIDTH, init_s=round(t_init, 3),
-          epoch_s=[round(dt, 4) for _, _, dt in epochs],
+          epoch_s=[round(dt, 4) for _, _, dt, _ in epochs],
           split_epoch_s=[round(dt, 4) for dt in split["epoch_s"]],
           losses=[f"{x:.10g}" for x in losses], test_auc=auc,
           split_test_auc=split["auc"], chunks=chunks, launches=counts[1],
@@ -938,8 +973,9 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
           **{f"half_epoch_ms_{name}": round(t, 4)
              for name, t in half.items()})
     return {"launches": counts[1], "cli_launches": cli_launches,
-            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "cli_auc": cli_auc, "max_abs_err": err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "epochs": epochs}
 
 
 def profile_split_user(engine) -> None:
@@ -1629,13 +1665,16 @@ def bpr_scale(data, device: str = "cuda") -> dict:
           bitmap_bytes=engine._pos_bitmap.words.numel() * 4,
           peak_bytes=peak, resident_before_bytes=before,
           stream_check=stream)
-    return {"engine": engine, "epoch_s": epoch_s}
+    return {"engine": engine, "epoch_s": epoch_s,
+            "updates_per_s": engine._n_real_triplets / epoch_s}
 
 
-def profile_bpr_epoch(engine, epoch_s: float) -> None:
+def profile_bpr_epoch(engine, epoch_s: float,
+                      phase: str = "9p bpr profile") -> None:
     """Phase 9p: one more epoch of phase 9d's engine under torch.profiler,
     after one unprofiled epoch timed the same way: wall ms beside device
-    ms, launches, and the largest kernels by device time."""
+    ms, launches, the largest kernels by device time and the host's ops by
+    their own CPU time (phase 10c: of its sharded engine)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1665,14 +1704,307 @@ def profile_bpr_epoch(engine, epoch_s: float) -> None:
     launches = sum(e.count for e in events)
     top = ", ".join(f"{e.key[:60]!r}:{self_ms(e):.3f}ms/{e.count}"
                     for e in events[:8])
-    _line("9p bpr profile", t0, epoch="grouped word, ml20m",
+    # the host's side: ops by their own CPU time (profiled, so inflated)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    host_top = ", ".join(
+        f"{e.key[:40]!r}:{e.self_cpu_time_total / 1e3:.3f}ms/{e.count}"
+        for e in host[:8])
+    _line(phase, t0, epoch="grouped word, ml20m",
           wall_ms=round(wall_ms, 3),
           optimize_median_epoch_ms=round(1e3 * epoch_s, 3),
           profiled_wall_ms=round(profiled_wall_ms, 3),
           device_ms=round(device_ms, 3), launches=launches,
           device_share_of_wall=round(device_ms / wall_ms, 4),
           paced_by="host" if device_ms < 0.8 * wall_ms else "device",
-          top=f"[{top}]")
+          top=f"[{top}]", host_top=f"[{host_top}]")
+
+
+def _sharded_wals_w1(mesh, train, want: list, **kw) -> dict:
+    """One 2-epoch ShardedWALSEngine run on ``mesh`` against epochs 1-2 of
+    a single-device run from the same init (``want``: its recorder rows)."""
+    import torch
+
+    from qmf_tpu_torch import WALSConfig
+    from qmf_tpu_torch.ops import build_solve, spd_solve
+    from qmf_tpu_torch.parallel import ShardedWALSEngine
+
+    # phase 4's configuration (phase 6's with kw)
+    cfg = WALSConfig(nfactors=K_MAIN, matmul_precision="default",
+                     batch_rows=8192, nepochs=2, **kw)
+    engine = ShardedWALSEngine(cfg, mesh=mesh)
+    t1 = time.time()
+    engine.init(train)
+    torch.cuda.synchronize()
+    t_init = time.time() - t1
+    epochs = []
+    engine.progress_cb = _recorder(engine, epochs)
+    spd_solve.launches = build_solve.launches = build_solve.launches_hot = 0
+    mesh.reset_counts()
+    engine.optimize()
+    launches = {"chol_solve": spd_solve.launches,
+                "build_solve": build_solve.launches,
+                "build_solve_hot": build_solve.launches_hot}
+    moved = dict(mesh.counts)
+    half = _half_epoch_ms({"mesh": (engine, engine._solver, engine.mesh),
+                           "no_mesh": (engine, engine._solver, None)})
+    u_want, v_want = want[1][3]
+    u_got = engine.user_factors[: engine.nusers].cpu()
+    v_got = engine.item_factors[: engine.nitems].cpu()
+    bitwise = (torch.equal(u_got, u_want) and torch.equal(v_got, v_want)
+               and [e[1] for e in epochs] == [e[1] for e in want[:2]])
+    err = max(_normwise_err(u_got, u_want)[1],
+              _normwise_err(v_got, v_want)[1])
+    if not err <= 5 * F32_TOL:
+        raise AssertionError(f"world-1 sharded WALS {kw} vs single device: "
+                             f"normwise factor error {err}")
+    return {"init_s": round(t_init, 3),
+            "epoch_s": [round(e[2], 4) for e in epochs],
+            "single_epoch_s": [round(e[2], 4) for e in want[:2]],
+            "losses": [f"{e[1]:.10g}" for e in epochs],
+            "bitwise_equal_to_single": bitwise, "normwise_err": err,
+            "launches": launches,
+            "collective_bytes_per_half_epoch":
+                moved["all_gather_bytes"] // 4,
+            "all_reduce_bytes_per_half_epoch":
+                moved["all_reduce_bytes"] // 4,
+            "collectives": moved["calls"],
+            **{f"half_epoch_ms_{k}": round(v, 4) for k, v in half.items()}}
+
+
+def _gloo_cuda_forms() -> dict:
+    """Which collectives a gloo group runs on CUDA tensors, in a world of
+    one: parallel/mesh.py hands gloo its CUDA tensors as they are."""
+    import torch
+    import torch.distributed as dist
+
+    from qmf_tpu_torch.parallel import launch
+    from qmf_tpu_torch.parallel.mesh import _all_gather_single as gather
+
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:"
+                            f"{launch.free_port()}", world_size=1, rank=0)
+    forms = {}
+    x = torch.ones(4, device="cuda")
+    for name, call in (
+            ("all_gather_single", lambda: gather(torch.empty_like(x), x)),
+            ("all_gather_list", lambda: dist.all_gather([torch.empty_like(x)],
+                                                        x)),
+            ("all_reduce", lambda: dist.all_reduce(x.clone()))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            forms[name] = "native"
+        except Exception as exc:  # noqa: BLE001 - reported, not raised
+            forms[name] = f"{type(exc).__name__}: {str(exc)[:80]}"
+    dist.destroy_process_group()
+    return forms
+
+
+def sharded(data, split: dict, fused: dict, bpr: dict, cli_files: dict,
+            device: str = "cuda") -> dict:
+    """Phase 10: the sharded engines (qmf_tpu_torch/parallel).
+
+    10a: ShardedWALSEngine over NCCL at world 1 on phase 4's data, split
+    path and fused+hot, 2 epochs each, against epochs 1-2 of phases 4 and
+    6. 10b: two gloo ranks sharing the card, reading files the parent
+    wrote: WALS at ml20m (phase 4's configuration, 3 epochs, AUC and
+    factors against phase 4's), WALS at phase 3's ml100k in float64 against
+    the single-device engine within 1e-9, BPR at phase 9b's small size in
+    float64, 3 epochs, within 1e-9. 10c: ShardedBPREngine over NCCL at world
+    1 with phase 9d's configuration, a warm-up epoch and a timed one, then
+    a profiled one. 10d:
+    the wals CLI under torchrun's environment at world 1 (the sharded path),
+    --solver=fused on phase 3's files. Returns the sharded launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from qmf_tpu_torch import BPRConfig, WALSConfig
+    from qmf_tpu_torch.cli import wals as cli
+    from qmf_tpu_torch.data import Dataset, read_dataset
+    from qmf_tpu_torch.models import BPREngine, WALSEngine
+    from qmf_tpu_torch.ops import build_solve, spd_solve
+    from qmf_tpu_torch.parallel import ShardedBPREngine, launch, make_mesh
+    from qmf_tpu_torch.parallel import multihost
+    from qmf_tpu_torch.parallel.dryrun import (read_result, run_jobs,
+                                               write_ratings_npz)
+
+    train, test = data
+    launches = dict.fromkeys(("chol_solve", "build_solve",
+                              "build_solve_hot"), 0)
+    # 10a and 10c: one NCCL group of one rank
+    t0 = time.time()
+    cuda = device == "cuda"
+    multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0,
+                         backend="nccl" if cuda else "gloo", device=device)
+    try:
+        mesh = make_mesh(device=device)
+        runs = {"split": _sharded_wals_w1(mesh, train, split["epochs"]),
+                "fused_hot": _sharded_wals_w1(
+                    mesh, train, fused["epochs"], solver="fused",
+                    hot_width=HOT_WIDTH)}
+        for run in runs.values():
+            for name, n in run["launches"].items():
+                launches[name] += n
+        if not (runs["split"]["launches"]["chol_solve"] > 0
+                and runs["fused_hot"]["launches"]["build_solve_hot"] > 0):
+            raise AssertionError(f"10a launched no kernel: {runs}")
+        _line("10a sharded nccl w1", t0, world=1, backend=mesh.backend,
+              **{f"{name}_{key}": value for name, run in runs.items()
+                 for key, value in run.items()})
+        torch.cuda.empty_cache()
+
+        t0 = time.time()
+        cfg = BPRConfig(nepochs=2, nfactors=BPR_K,
+                        num_negative_samples=BPR_NEG, batch_size=BPR_BATCH,
+                        init_seed=0)
+        engine = ShardedBPREngine(cfg, mesh=mesh)
+        engine.init(train)
+        epochs = []
+        engine.progress_cb = lambda *row: epochs.append(row)
+        engine.optimize()
+        epoch_s = epochs[-1][3]
+        if not (engine._grouped and np.isfinite(
+                [e[1] for e in epochs]).all()):
+            raise AssertionError(f"10c: grouped {engine._grouped}, "
+                                 f"losses {epochs}")
+        rate = engine._n_real_triplets / epoch_s
+        profile_bpr_epoch(engine, epoch_s, "10c sharded bpr profile")
+        _line("10c sharded bpr nccl w1", t0, world=1, k=BPR_K,
+              batch=BPR_BATCH, warmup_epoch_s=round(epochs[0][3], 4),
+              epoch_s=round(epoch_s, 4),
+              bpr_triplet_updates_per_s=round(rate, 1),
+              single_device_updates_per_s=round(bpr["updates_per_s"], 1),
+              train_losses=[f"{e[1]:.6g}" for e in epochs])
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # 10b: two gloo ranks on the one card
+    t0 = time.time()
+    forms = _gloo_cuda_forms() if cuda else {}
+    u, i = _bpr_positives(1 << 13, 300, 500, SEED + 1, zipf=False)
+    small = Dataset(u, i, np.ones(len(u)))
+    ml100k = read_dataset(cli_files["train.txt"])
+    f64_wals = dict(dtype="float64", nepochs=3)
+    f64_bpr = dict(nepochs=3, nfactors=8, batch_size=256,
+                   num_negative_samples=BPR_NEG, dtype="float64")
+    with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as tmp:
+        path = {}
+        for name, ds in (("ml20m", train), ("ml20m_test", test),
+                         ("ml100k", ml100k), ("small", small)):
+            path[name] = os.path.join(tmp, f"{name}.npz")
+            write_ratings_npz(path[name], ds)
+        jobs = [
+            {"engine": "wals", "train": path["ml20m"],
+             "test": path["ml20m_test"],
+             "metrics": {"num_test_users": 3000, "seed": SEED},
+             "config": dict(nfactors=K_MAIN, matmul_precision="default",
+                            batch_rows=8192, nepochs=3),
+             "out": os.path.join(tmp, "ml20m")},
+            {"engine": "wals", "train": path["ml100k"], "config": f64_wals,
+             "out": os.path.join(tmp, "ml100k")},
+            {"engine": "bpr", "train": path["small"], "config": f64_bpr,
+             "out": os.path.join(tmp, "small")},
+        ]
+        t1 = time.time()
+        launch.spawn(run_jobs, 2, backend="gloo",
+                     device=f"{device}:0" if cuda else device, args=(jobs,),
+                     deadline_s=400)
+        spawn_s = time.time() - t1
+        res = {job["out"].rsplit(os.sep, 1)[-1]:
+               [read_result(job["out"], r) for r in (0, 1)] for job in jobs}
+    big = res["ml20m"]
+    for r in (0, 1):
+        if not np.array_equal(big[r]["item_factors"],
+                              big[0]["item_factors"]):
+            raise AssertionError("10b: the ranks' factors differ")
+    # Two ranks build each row as one device does, but the build's batched
+    # GEMMs see other batch counts, so cuBLAS may sum in another order; the
+    # bf16 rounding of the next half-epoch's operands carries such last-bit
+    # differences through the epochs. So the ranks are held to the spread
+    # of two single-device builds of the same data in the same run (phase
+    # 6's fused+hot against phase 4's split factors), and at least to
+    # phase 4's bound on one solve.
+    final = split["epochs"][-1][3]
+    errs = [_normwise_err(torch.from_numpy(big[0][f"{side}_factors"]),
+                          final[j])[1]
+            for j, side in enumerate(("user", "item"))]
+    gap = max(_normwise_err(fused["epochs"][-1][3][j], final[j])[1]
+              for j in (0, 1))
+    bound = max(5 * F32_TOL, 2 * gap)
+    auc = float(big[0]["auc"])
+    if not (max(errs) <= bound and abs(auc - split["auc"]) <= 2e-3):
+        raise AssertionError(f"10b ml20m: normwise errors {errs} (bound "
+                             f"{bound}), AUC {auc} vs {split['auc']}")
+    single = WALSEngine(WALSConfig(**f64_wals), device=device)
+    single.init(ml100k)
+    single.optimize()
+    bpr_single = BPREngine(BPRConfig(**f64_bpr), device=device)
+    bpr_single.init(small)
+    bpr_single.optimize()
+    diffs = {}
+    for name, want in (("ml100k", (single.user_factors, single.item_factors)),
+                       ("small", bpr_single.params)):
+        got = res[name][0]
+        diffs[name] = max(float(np.abs(got[key] - w.cpu().numpy()).max())
+                          for key, w in zip(("user_factors", "item_factors",
+                                             "item_biases"), want))
+    if not max(diffs.values()) <= 1e-9:
+        raise AssertionError(f"10b float64: {diffs} beyond 1e-9")
+    per_rank = [{k: int(res["ml20m"][r][f"{k}_launches"])
+                 for k in ("chol_solve", "build_solve", "build_solve_hot")}
+                for r in (0, 1)]
+    for rank in per_rank:
+        for name, n in rank.items():
+            launches[name] += n
+    if not all(rank["chol_solve"] > 0 for rank in per_rank):
+        raise AssertionError(f"10b launched no chol_solve: {per_rank}")
+    _line("10b sharded gloo w2", t0, world=2, backend="gloo",
+          device=f"{device}:0", gloo_cuda_forms=forms,
+          spawn_s=round(spawn_s, 3),
+          ml20m_epoch_s=[[round(float(x), 4) for x in big[r]["epoch_s"]]
+                         for r in (0, 1)],
+          ml20m_single_epoch_s=[round(e[2], 4) for e in split["epochs"]],
+          ml20m_launches=per_rank, ml20m_test_auc=auc,
+          single_test_auc=split["auc"], ml20m_normwise_err=max(errs),
+          ml20m_bitwise_equal=max(errs) == 0.0,
+          fused_vs_split_normwise=gap, ml20m_bound=bound,
+          ml20m_losses=[f"{float(x):.10g}" for x in big[0]["losses"]],
+          collective_bytes_per_half_epoch=int(
+              big[0]["collective_all_gather_bytes"]) // 6,
+          f64_max_abs_diff=diffs, bpr_grouped=bool(res["small"][0]["grouped"]))
+
+    # 10d: the CLI under torchrun's environment, one rank
+    t0 = time.time()
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(launch.free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    build_solve.launches = build_solve.launches_hot = spd_solve.launches = 0
+    with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as tmp:
+        out = {n: os.path.join(tmp, n) for n in ("user.dat", "item.dat")}
+        try:
+            rc = cli.main([f"--train_dataset={cli_files['train.txt']}",
+                           "--solver=fused", "--n_devices=1",
+                           f"--device={device}",
+                           f"--user_factors={out['user.dat']}",
+                           f"--item_factors={out['item.dat']}"])
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        cli_auc, *_ = _auc_of_files(out["user.dat"], out["item.dat"],
+                                    read_dataset(cli_files["test.txt"]),
+                                    device)
+    n_cli = build_solve.launches
+    launches["build_solve"] += n_cli
+    if rc != 0 or not n_cli > 0 or abs(cli_auc - fused["cli_auc"]) > 2e-3:
+        raise AssertionError(f"10d: rc {rc}, {n_cli} build_solve launches, "
+                             f"AUC {cli_auc} vs {fused['cli_auc']}")
+    _line("10d cli torchrun w1", t0, solver="fused", launches=n_cli,
+          test_auc=cli_auc, single_device_test_auc=fused["cli_auc"])
+    return launches
 
 
 def main() -> int:
@@ -1698,7 +2030,11 @@ def main() -> int:
         bpr_check()
         bpr_cli(cli_files)
         bpr = bpr_scale(data)
-        profile_bpr_epoch(bpr["engine"], bpr["epoch_s"])
+        profile_bpr_epoch(bpr.pop("engine"), bpr["epoch_s"])
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        _line("10 sharded launches", t0,
+              **sharded(data, main_path, fused, bpr, cli_files))
     print(f"phase total: ok seconds={time.time() - t_start:.1f}", flush=True)
     source = "qmf_tpu_torch/csrc/build_solve.cu"
 

@@ -1,7 +1,7 @@
 """qmf_tpu_torch — the PyTorch/CUDA port of qmf_tpu.
 
 A second package beside the JAX reference ``qmf_tpu``, with the same module
-layout: single-device WALS and BPR training, their ranking metrics and the
+layout: WALS and BPR training, their ranking metrics and the
 reference text formats and CLIs, in PyTorch. The batched SPD solve of each half-epoch
 runs through a hand-written CUDA kernel for Hopper (``csrc/chol_solve.cu``),
 or, with ``solver="fused"``, the normal-equation build and the solve run
@@ -15,10 +15,10 @@ from trained factors. BPR (``ops/bpr_ops.py``, ``models/bpr.py``,
 plain PyTorch versions run instead. Nothing here imports jax or ``qmf_tpu``: the host
 layer that is jax-free in ``qmf_tpu`` (config, data, flags, logging,
 checkpoint) is copied into ``config.py``, ``data/`` and ``utils/``, with the
-same file formats.
+same file formats. ``parallel/`` trains both engines over several ranks of
+a ``torch.distributed`` group (``ShardedWALSEngine``, ``ShardedBPREngine``).
 
-Not ported yet (ROADMAP.md): multi-device training, the control plane and
-on-device packing.
+Not ported yet (ROADMAP.md): the control plane and on-device packing.
 """
 
 __version__ = "0.1.0"

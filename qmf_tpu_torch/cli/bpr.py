@@ -1,4 +1,4 @@
-"""``bpr`` CLI of the PyTorch port — single-device BPR training.
+"""``bpr`` CLI of the PyTorch port — BPR training.
 
 Flag-compatible with qmf_tpu.cli.bpr and the reference binary (reference
 qmf/bpr.cpp:28-59): same names, defaults, and gflags syntax, plus
@@ -9,8 +9,11 @@ qmf/bpr.cpp:28-59): same names, defaults, and gflags syntax, plus
 
 ``--num_hogwild_threads`` and ``--nthreads`` are accepted for compatibility;
 the Hogwild concurrency role is played by the synchronous minibatch (see
-``--batch_size``). Only ``--n_devices=1`` runs: multi-device training is not
-ported yet (ROADMAP.md, queue 1).
+``--batch_size``). ``--n_devices`` is qmf_tpu's: 1 trains on one device,
+N > 1 runs the data-parallel ShardedBPREngine on N local ranks (one a card;
+gloo ranks with ``--device=cpu``), 0 on every visible card; under torchrun
+the process joins torchrun's group (parallel/launch.py ``run_cli``). Rank 0
+logs and writes the factor files.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from qmf_tpu_torch.config import BPRConfig, MetricsConfig
 from qmf_tpu_torch.data import read_dataset
 from qmf_tpu_torch.metrics import MetricsEngine
 from qmf_tpu_torch.models import BPREngine
+from qmf_tpu_torch.parallel import ShardedBPREngine, launch
 from qmf_tpu_torch.utils import split
 from qmf_tpu_torch.utils.flags import Flags
 from qmf_tpu_torch.utils.logging import log
@@ -101,7 +105,8 @@ def make_flags() -> Flags:
         "probes) | rounds (compacted exact-rejection rounds)",
     )
     fl.define_integer(
-        "n_devices", 1, "devices to train on; the port runs only 1"
+        "n_devices", 1, "devices to train on: 1 = one device, N > 1 = "
+        "data-parallel over N ranks, 0 = every visible CUDA device"
     )
     fl.define_string(
         "item_scatter",
@@ -115,15 +120,24 @@ def make_flags() -> Flags:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     fl = make_flags()
     fl.parse(argv)
-    if fl.n_devices != 1:
-        raise ValueError(
-            f"--n_devices={fl.n_devices}: the port trains on one device "
-            "only; multi-device BPR (qmf_tpu/parallel) is queued in "
-            "ROADMAP.md"
-        )
+    rc = launch.run_cli(_rank_main, fl.n_devices, fl.device, argv)
+    return _train(fl) if rc is None else rc
 
+
+def _rank_main(mesh, argv) -> None:
+    """One rank of a data-parallel run (launch.run_cli)."""
+    fl = make_flags()
+    fl.parse(argv)
+    rc = _train(fl, mesh)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _train(fl, mesh=None) -> int:
+    """Train as the flags say: on one device, or as a rank of ``mesh``."""
     if not fl.user_factors or not fl.item_factors:
         log.warning(
             "warning: missing model output filenames! "
@@ -161,13 +175,24 @@ def main(argv=None) -> int:
             log.error("metric %s is not available", metric)
             return 1
 
-    engine = BPREngine(
-        config,
-        metrics_engine,
-        eval_num_neg=fl.eval_num_neg,
-        eval_seed=fl.eval_seed,
-        device=fl.device,
-    )
+    if mesh is None:
+        engine = BPREngine(
+            config,
+            metrics_engine,
+            eval_num_neg=fl.eval_num_neg,
+            eval_seed=fl.eval_seed,
+            device=fl.device,
+        )
+    else:
+        engine = ShardedBPREngine(
+            config,
+            metrics_engine,
+            eval_num_neg=fl.eval_num_neg,
+            eval_seed=fl.eval_seed,
+            mesh=mesh,
+        )
+        log.info("data-parallel BPR over %d ranks (%s)", mesh.size,
+                 mesh.backend)
 
     log.info("loading training data")
     engine.init(read_dataset(fl.train_dataset))

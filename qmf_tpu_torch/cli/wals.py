@@ -1,4 +1,4 @@
-"""``wals`` CLI of the PyTorch port — single-device WALS training.
+"""``wals`` CLI of the PyTorch port — WALS training.
 
 Flag-compatible with qmf_tpu.cli.wals and the reference binary (reference
 qmf/wals.cpp:26-50), plus ``--device``::
@@ -8,8 +8,14 @@ qmf/wals.cpp:26-50), plus ``--device``::
 
 A uniform init file for ``--distribution_file`` comes from
 ``python -m qmf_tpu_torch.cli.gen_uniform``. ``--nthreads`` is accepted for
-compatibility. Only ``--n_devices=1`` runs: multi-device training is not
-ported yet (ROADMAP.md, queue 1).
+compatibility. ``--n_devices`` is qmf_tpu's: 1 trains on one device, N > 1
+runs ShardedWALSEngine on N local ranks (one a card; gloo ranks with
+``--device=cpu``), 0 on every visible card. Under torchrun the process
+joins torchrun's group instead (parallel/launch.py ``run_cli``)::
+
+    torchrun --nproc_per_node=4 -m qmf_tpu_torch.cli.wals --n_devices=4 ...
+
+Rank 0 logs and writes the factor files.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from qmf_tpu_torch.config import MetricsConfig, WALSConfig
 from qmf_tpu_torch.data import read_dataset
 from qmf_tpu_torch.metrics import MetricsEngine
 from qmf_tpu_torch.models import WALSEngine
+from qmf_tpu_torch.parallel import ShardedWALSEngine, launch
 from qmf_tpu_torch.utils import split
 from qmf_tpu_torch.utils.flags import Flags
 from qmf_tpu_torch.utils.logging import log
@@ -96,22 +103,32 @@ def make_flags() -> Flags:
         "a non-deterministic random_device)"
     )
     fl.define_integer(
-        "n_devices", 1, "devices to train on; the port runs only 1"
+        "n_devices", 1, "devices to train on: 1 = one device, N > 1 = "
+        "sharded over N ranks, 0 = every visible CUDA device"
     )
     fl.define_string("device", "cuda", "torch device: cuda | cuda:N | cpu")
     return fl
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     fl = make_flags()
     fl.parse(argv)
-    if fl.n_devices != 1:
-        raise ValueError(
-            f"--n_devices={fl.n_devices}: the port trains on one device "
-            "only; multi-device WALS (qmf_tpu/parallel) is queued in "
-            "ROADMAP.md"
-        )
+    rc = launch.run_cli(_rank_main, fl.n_devices, fl.device, argv)
+    return _train(fl) if rc is None else rc
 
+
+def _rank_main(mesh, argv) -> None:
+    """One rank of a sharded run (launch.run_cli)."""
+    fl = make_flags()
+    fl.parse(argv)
+    rc = _train(fl, mesh)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _train(fl, mesh=None) -> int:
+    """Train as the flags say: on one device, or as a rank of ``mesh``."""
     if not fl.user_factors or not fl.item_factors:
         log.warning(
             "warning: missing model output filenames! "
@@ -143,7 +160,11 @@ def main(argv=None) -> int:
             log.error("metric %s is not available", metric)
             return 1
 
-    engine = WALSEngine(config, metrics_engine, device=fl.device)
+    if mesh is None:
+        engine = WALSEngine(config, metrics_engine, device=fl.device)
+    else:
+        engine = ShardedWALSEngine(config, metrics_engine, mesh=mesh)
+        log.info("sharded WALS over %d ranks (%s)", mesh.size, mesh.backend)
 
     log.info("loading training data")
     engine.init(read_dataset(fl.train_dataset))

@@ -11,6 +11,11 @@ CUDA toolkit, where :func:`available` is False.
 
 If the build fails the error carries nvcc's stderr; nothing falls back to a
 plain PyTorch version for a CUDA tensor.
+
+Every launch and device query runs under ``torch.cuda.device`` of its
+tensor's device: the library sets the CUDA runtime's current device to the
+one it launches on, and the guard gives the caller's back afterwards, so a
+launch on ``cuda:N`` leaves PyTorch's current device as it was.
 """
 
 from __future__ import annotations
@@ -216,12 +221,12 @@ def launch_chol_solve(a: torch.Tensor, b: torch.Tensor,
     fn = {torch.float32: lib.qmf_chol_solve_f32,
           torch.float64: lib.qmf_chol_solve_f64}[a.dtype]
     bsz, k = b.shape
-    err = fn(
-        a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, k,
-        *a.stride(), *b.stride(), *x.stride(),
-        a.device.index if a.device.index is not None else 0,
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
+    with torch.cuda.device(a.device):
+        err = fn(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, k,
+            *a.stride(), *b.stride(), *x.stride(), _index(a.device),
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
     if err != 0:
         msg = lib.qmf_cuda_error_string(err).decode()
         raise RuntimeError(
@@ -247,12 +252,12 @@ def launch_chol_solve_t(a_t: torch.Tensor, b_t: torch.Tensor,
     k, bsz = b_t.shape
     sa_r, sa_c, sa_b = a_t.stride()
     (sb_r, sb_b), (sx_r, sx_b) = b_t.stride(), x_t.stride()
-    err = fn(
-        a_t.data_ptr(), b_t.data_ptr(), x_t.data_ptr(), bsz, k,
-        sa_b, sa_r, sa_c, sb_b, sb_r, sx_b, sx_r,
-        a_t.device.index if a_t.device.index is not None else 0,
-        torch.cuda.current_stream(a_t.device).cuda_stream,
-    )
+    with torch.cuda.device(a_t.device):
+        err = fn(
+            a_t.data_ptr(), b_t.data_ptr(), x_t.data_ptr(), bsz, k,
+            sa_b, sa_r, sa_c, sb_b, sb_r, sx_b, sx_r, _index(a_t.device),
+            torch.cuda.current_stream(a_t.device).cuda_stream,
+        )
     if err != 0:
         msg = lib.qmf_cuda_error_string(err).decode()
         raise RuntimeError(
@@ -288,10 +293,17 @@ def build_solve_max_k(dtype: torch.dtype) -> int:
     return build_solve_limits(dtype).max_k
 
 
+def _index(device: torch.device) -> int:
+    """The CUDA device's ordinal (a bare "cuda" is the current device)."""
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    with torch.cuda.device(device):
+        return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
@@ -328,13 +340,13 @@ def launch_build_solve(yg: torch.Tensor, w: torch.Tensor, conf: torch.Tensor,
     if n_slices > 1:
         ws_a, ws_b = scratch(n, n_slices, pairs), scratch(n, n_slices, k)
         ws_ptrs = [ws_a.data_ptr(), ws_b.data_ptr()]
-    err = fn(
-        yg.data_ptr(), w.data_ptr(), conf.data_ptr(), ytyl.data_ptr(),
-        *hot_ptrs, *ws_ptrs, x.data_ptr(), b.data_ptr(), n, d, k, h,
-        h_slices, n_slices,
-        yg.device.index if yg.device.index is not None else 0,
-        torch.cuda.current_stream(yg.device).cuda_stream,
-    )
+    with torch.cuda.device(yg.device):
+        err = fn(
+            yg.data_ptr(), w.data_ptr(), conf.data_ptr(), ytyl.data_ptr(),
+            *hot_ptrs, *ws_ptrs, x.data_ptr(), b.data_ptr(), n, d, k, h,
+            h_slices, n_slices, _index(yg.device),
+            torch.cuda.current_stream(yg.device).cuda_stream,
+        )
     if err != 0:
         msg = lib.qmf_cuda_error_string(err).decode()
         raise RuntimeError(
@@ -369,15 +381,15 @@ def launch_gather(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
     lib = load()
     row_bytes = table.shape[1] * table.element_size()
     granted = ctypes.c_longlong(0)
-    err = lib.qmf_gather(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), out.shape[0],
-        table.shape[0], row_bytes, width, int(idx.dtype == torch.int64),
-        GATHER_VARIANTS[variant], int(fill), tile_rows, tile_stages,
-        int(l2_window),
-        table.device.index if table.device.index is not None else 0,
-        torch.cuda.current_stream(table.device).cuda_stream,
-        ctypes.byref(granted),
-    )
+    with torch.cuda.device(table.device):
+        err = lib.qmf_gather(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), out.shape[0],
+            table.shape[0], row_bytes, width, int(idx.dtype == torch.int64),
+            GATHER_VARIANTS[variant], int(fill), tile_rows, tile_stages,
+            int(l2_window), _index(table.device),
+            torch.cuda.current_stream(table.device).cuda_stream,
+            ctypes.byref(granted),
+        )
     if err != 0:
         msg = lib.qmf_cuda_error_string(err).decode()
         tile = (f", {tile_rows} rows x {tile_stages} tiles" if tile_rows
@@ -399,9 +411,10 @@ def reset_l2_persistence(device: torch.device) -> int:
     ``l2_window``. Returns the carve-out in bytes afterwards."""
     lib = load()
     limit = ctypes.c_longlong(-1)
-    err = lib.qmf_l2_reset(
-        device.index if device.index is not None else 0,
-        torch.cuda.current_stream(device).cuda_stream, ctypes.byref(limit))
+    with torch.cuda.device(device):
+        err = lib.qmf_l2_reset(
+            _index(device), torch.cuda.current_stream(device).cuda_stream,
+            ctypes.byref(limit))
     if err != 0:
         raise RuntimeError(
             f"L2 reset failed: CUDA error {err}: "

@@ -60,6 +60,10 @@ _EVAL_SAMPLE_CHUNK = 4_000_000
 
 
 class BPREngine(Engine):
+    # the ranks' Mesh of the sharded engine (parallel/sharded_bpr.py); None
+    # runs every step here
+    mesh = None
+
     def __init__(
         self,
         config: BPRConfig,
@@ -459,6 +463,7 @@ class BPREngine(Engine):
                     if self._pos_bloom is not None else None,
                     item_scatter=cfg.item_scatter,
                     sampler=cfg.neg_sampler,
+                    mesh=self.mesh,
                 )
             )
             return
@@ -477,6 +482,7 @@ class BPREngine(Engine):
             batch_size=min(cfg.batch_size, self._tri_users.shape[0]),
             bitmap=self._pos_bitmap,
             n_real=self._n_real_triplets,
+            mesh=self.mesh,
         )
 
     def enable_checkpointing(self, directory: str, every: int = 1) -> None:

@@ -15,6 +15,10 @@
 - ``hot_width`` > 0 splits each side's H hottest fixed-side columns out of
   the gathered stream into static per-row weights (ops/hot.py), built once
   here; "auto" resolves to 0 in the port.
+- ``init``'s placement hooks (``_row_multiple``, ``_place_side``,
+  ``_install_factors``) and the checkpoint pair (``_checkpoint_arrays``,
+  ``_restore_factors``) are what parallel/engine.py's ShardedWALSEngine
+  overrides.
 """
 
 from __future__ import annotations
@@ -50,6 +54,10 @@ HotState = Tuple[torch.Tensor, List[Tuple[torch.Tensor, ...]]]
 
 
 class WALSEngine(Engine):
+    # the ranks' Mesh of the sharded engine (parallel/engine.py); None
+    # solves every row here
+    mesh = None
+
     def __init__(
         self,
         config: WALSConfig,
@@ -130,7 +138,8 @@ class WALSEngine(Engine):
         """Host-pack one side, hot/cold split when ``h`` > 0 (qmf_tpu
         models/wals.py:193-227). Returns (classes, hot state or None)."""
         cfg = self.config
-        kw = dict(row_multiple=8, width_grid=cfg.width_grid,
+        kw = dict(row_multiple=self._row_multiple(),
+                  width_grid=cfg.width_grid,
                   max_classes=cfg.max_width_classes,
                   min_class_nnz_frac=cfg.min_class_nnz_frac)
         if h <= 0:
@@ -156,6 +165,15 @@ class WALSEngine(Engine):
         )
 
     # --- lifecycle -----------------------------------------------------------
+    # init is shared with ShardedWALSEngine (parallel/engine.py) through
+    # three placement hooks, _row_multiple, _place_side and
+    # _install_factors, as in qmf_tpu (models/wals.py:231-260), so the
+    # pack, stats and chunk logic exists once.
+    def _row_multiple(self) -> int:
+        """Row-count multiple every class and scan chunk is padded to (the
+        sharded engine raises it to 8 x world size, so blocks are even)."""
+        return 8
+
     def _to_device(self, classes) -> List[ClassArrays]:
         dev = self.device
         return [
@@ -165,6 +183,25 @@ class WALSEngine(Engine):
              torch.from_numpy(c.mask).to(dev))
             for c in classes
         ]
+
+    def _place_side(self, side: str, classes, hot, chunks) -> None:
+        """Install one packed side: ``classes`` are the host-packed width
+        classes, ``hot`` the optional hot state, ``chunks`` each class's
+        scan chunk. The sharded engine keeps its rank's rows only."""
+        setattr(self, f"_{side}_classes", self._to_device(classes))
+        setattr(self, f"_{side}_chunks", chunks)
+        setattr(self, f"_{side}_hot", hot)
+
+    def _install_factors(self, item_factors_np: np.ndarray) -> None:
+        """Place the initial factors: items from ``item_factors_np``,
+        users zero (the sharded engine pads both heights)."""
+        self.item_factors = torch.as_tensor(
+            item_factors_np, dtype=self.dtype, device=self.device
+        )
+        self.user_factors = torch.zeros(
+            (self.nusers, self.config.nfactors), dtype=self.dtype,
+            device=self.device,
+        )
 
     def init(self, dataset: Dataset) -> None:
         if self.user_factors is not None or self.item_factors is not None:
@@ -196,11 +233,8 @@ class WALSEngine(Engine):
             classes, hot = self._pack_side_host(
                 r, c, dataset.values, n, n_cols, deg_r, deg_c, h)
             sides[side] = packed_stats(classes)
-            setattr(self, f"_{side}_chunks",
-                    chunks_for_classes(classes, cfg.batch_rows,
-                                       row_multiple=8))
-            setattr(self, f"_{side}_classes", self._to_device(classes))
-            setattr(self, f"_{side}_hot", hot)
+            self._place_side(side, classes, hot, chunks_for_classes(
+                classes, cfg.batch_rows, row_multiple=self._row_multiple()))
         log.info(
             "packed %d ratings: users %s, items %s hot=(%d,%d) (%.2fs)",
             len(dataset), sides["user"], sides["item"], h_user, h_item,
@@ -217,12 +251,7 @@ class WALSEngine(Engine):
                 cfg.init_distribution_bound,
                 np.random.default_rng(cfg.init_seed),
             )
-        self.item_factors = torch.as_tensor(
-            item_init.factors, dtype=self.dtype, device=self.device
-        )
-        self.user_factors = torch.zeros(
-            (self.nusers, cfg.nfactors), dtype=self.dtype, device=self.device
-        )
+        self._install_factors(item_init.factors)
 
     def load_factors(self, user_factors: torch.Tensor,
                      item_factors: torch.Tensor) -> None:
@@ -259,7 +288,7 @@ class WALSEngine(Engine):
             self._item_classes, cfg.confidence_weight,
             cfg.regularization_lambda, self._solver, cfg.matmul_precision,
             self.nusers, self.nitems, self._user_chunks, self._item_chunks,
-            self._user_hot, self._item_hot,
+            self._user_hot, self._item_hot, mesh=self.mesh,
         )
         return float(loss) / self.nusers / self.nitems
 
@@ -277,20 +306,30 @@ class WALSEngine(Engine):
         if path is None:
             return 1
         epoch, arrays, _ = ckpt.load_checkpoint(path)
-        self.load_factors(torch.from_numpy(arrays["user_factors"]),
-                          torch.from_numpy(arrays["item_factors"]))
+        self._restore_factors(arrays)
         log.info("resumed from %s at epoch %d", path, epoch)
         return epoch + 1
+
+    def _restore_factors(self, arrays) -> None:
+        """Load checkpointed (unpadded) factors; through load_factors, which
+        the sharded engine overrides to pad them to its heights."""
+        self.load_factors(torch.from_numpy(arrays["user_factors"]),
+                          torch.from_numpy(arrays["item_factors"]))
+
+    def _checkpoint_arrays(self) -> dict:
+        """The factors without padding rows, so a checkpoint does not
+        depend on the number of ranks that wrote it."""
+        return {
+            "user_factors": self.user_factors[: self.nusers].cpu().numpy(),
+            "item_factors": self.item_factors[: self.nitems].cpu().numpy(),
+        }
 
     def _maybe_checkpoint(self, epoch: int) -> None:
         if self._ckpt_dir and epoch % self._ckpt_every == 0:
             ckpt.save_checkpoint(
                 self._ckpt_dir,
                 epoch,
-                {
-                    "user_factors": self.user_factors.cpu().numpy(),
-                    "item_factors": self.item_factors.cpu().numpy(),
-                },
+                self._checkpoint_arrays(),
                 meta={"nfactors": self.config.nfactors, "engine": "wals"},
             )
 
@@ -345,7 +384,7 @@ class WALSEngine(Engine):
             log.info("do compute evaluate ...")
             scores = als_ops.compute_scores(
                 self.user_factors,
-                self.item_factors,
+                self.item_factors[: self.nitems],
                 user_idx=torch.from_numpy(self.test_users).to(self.device),
             )
             me.compute_and_record_test_avg_metrics(
@@ -357,7 +396,7 @@ class WALSEngine(Engine):
         if self.user_factors is None:
             raise RuntimeError("user factors wasn't initialized")
         self.save_factor_data(
-            self.user_factors.cpu().numpy().astype(np.float64),
+            self.user_factors[: self.nusers].cpu().numpy().astype(np.float64),
             self.user_index,
             file_name,
         )
@@ -366,7 +405,7 @@ class WALSEngine(Engine):
         if self.item_factors is None:
             raise RuntimeError("item factors wasn't initialized")
         self.save_factor_data(
-            self.item_factors.cpu().numpy().astype(np.float64),
+            self.item_factors[: self.nitems].cpu().numpy().astype(np.float64),
             self.item_index,
             file_name,
         )

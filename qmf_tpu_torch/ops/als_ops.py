@@ -188,7 +188,8 @@ def _fused_class(y_s, ytyl, col_idx, values, mask, alpha, lam, chunk_b,
 
 
 def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
-                alpha, lam, solver: str, precision: str, hot=None):
+                alpha, lam, solver: str, precision: str, hot=None,
+                mesh=None, n_fixed=None):
     """One half-epoch: every width class of one side against fixed ``y``.
 
     Per class: a chunked build and one batched solve (qmf_tpu's "pallas"
@@ -199,9 +200,26 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
     solved rows. ``hot`` =
     (hot_ids, [per-class (w_a, w_b, conf_hot)]) adds the hot/cold split.
     Returns (new factors (n_rows, k), summed un-normalized loss (0-d)).
+
+    With ``mesh`` (parallel/mesh.py; qmf_tpu's ``spmd``), ``y`` is the whole
+    fixed side on every rank, its rows from ``n_fixed`` on zero padding,
+    and each class holds its full ``row_ids`` but only this rank's block of
+    rows of everything else, hot weights included (parallel/sharded_wals.py
+    ShardedBuckets), with ``chunk_sizes`` this rank's share of each chunk.
+    The rank builds and solves its rows only; one all_gather per class
+    brings every rank the whole class, which is scattered as without a
+    mesh, and the loss is one all_reduce at the end. The new factors are
+    padded to a height the world size divides; padding rows of the classes
+    carry that height, the sink's id. YtY is computed whole on every rank
+    from the real rows of ``y`` (k^2 n flops), as one device computes it:
+    one rank's results are the single-device engine's bit for bit, and more
+    ranks differ only where a batched GEMM of fewer rows sums in another
+    order.
     """
     k = y.shape[1]
-    yty = gramian(y)
+    yty = gramian(y[:n_fixed])
+    if mesh is not None:
+        n_rows += (-n_rows) % mesh.size
     # padding rows carry row id n_rows: scatter into one extra sink row and
     # slice it off (index_copy_ has no mode="drop")
     x_out = torch.zeros((n_rows + 1, k), dtype=y.dtype, device=y.device)
@@ -222,8 +240,8 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
             x, row_loss = _fused_class(y_s, ytyl, col_idx, values, mask,
                                        alpha, lam, chunk_b, hot_cls, y_hot)
             loss = loss + row_loss.sum()
-            x_out.index_copy_(0, row_ids, x)
-        return x_out[:n_rows], loss
+            x_out.index_copy_(0, row_ids, _whole_class(x, mesh))
+        return x_out[:n_rows], _sum_over_ranks(loss, mesh)
     if z is not None:
         # the split path's hot GEMMs run on operands upcast once per side
         y_hot, z = y_hot.to(y.dtype), z.to(y.dtype)
@@ -235,26 +253,38 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
             chunk_b, hot_cls, y_hot, z,
         )
         loss = loss + row_loss.sum()
-        x_out.index_copy_(0, row_ids, x)
-    return x_out[:n_rows], loss
+        x_out.index_copy_(0, row_ids, _whole_class(x, mesh))
+    return x_out[:n_rows], _sum_over_ranks(loss, mesh)
+
+
+def _whole_class(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The solved rows of the whole class: this rank's block without a
+    mesh is the class; with one, the ranks' blocks in rank order."""
+    return x if mesh is None else mesh.all_gather_rows(x)
+
+
+def _sum_over_ranks(loss: torch.Tensor, mesh) -> torch.Tensor:
+    return loss if mesh is None else mesh.all_reduce_sum(loss)
 
 
 def train_epoch(user_factors, item_factors, user_arrays, item_arrays,
                 alpha, lam, solver: str, precision: str, n_users: int,
                 n_items: int, user_chunks, item_chunks, user_hot=None,
-                item_hot=None):
+                item_hot=None, mesh=None):
     """One full WALS epoch: users against items, then items against the new
     users (reference WALSEngine.cpp:82-96). Returns
     (u_new, v_new, loss_u, loss_v); the reference logs the item-side loss.
-    ``user_hot``/``item_hot`` are each side's hot state (see _solve_side)."""
+    ``user_hot``/``item_hot`` are each side's hot state, ``mesh`` shares
+    each half-epoch's rows among ranks, and the factors it returns are
+    padded to heights the world size divides (see _solve_side)."""
     del user_factors  # recomputed from scratch each epoch (reference zeroes)
     u_new, loss_u = _solve_side(
         item_factors, user_arrays, user_chunks, n_users, alpha, lam, solver,
-        precision, user_hot,
+        precision, user_hot, mesh, n_items,
     )
     v_new, loss_v = _solve_side(
         u_new, item_arrays, item_chunks, n_items, alpha, lam, solver,
-        precision, item_hot,
+        precision, item_hot, mesh, n_users,
     )
     return u_new, v_new, loss_u, loss_v
 

@@ -27,7 +27,10 @@ The update rule is the reference's (BPREngine.cpp:178-220):
     q_i += lr (e p_u - item_lambda q_i)
     q_j += lr (-e p_u - item_lambda q_j)
 Every update of a minibatch reads the parameters as they were before the
-batch, and contributions to the same row sum.
+batch, and contributions to the same row sum. Given a ``mesh``
+(parallel/mesh.py), the SGD loops compute the gradients of this rank's
+lanes of each step only and apply the whole step's, gathered from every
+rank (``_whole_batch``): the data-parallel epoch of parallel/sharded_bpr.py.
 
 Every random draw is an argument. A function that qmf_tpu gives a PRNG key
 is split in two here: the inner function takes the drawn integers (round
@@ -53,6 +56,7 @@ mask. The streams and the membership words stay int32.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -419,35 +423,75 @@ def _sgd_update_body(
     item_lambda: float,
     bias_lambda: float,
     use_biases: bool,
+    mesh=None,
+    batch_size: int = 0,
 ) -> BPRParams:
     """The SGD update of one minibatch with negatives already sampled, in
     place. Everything the gradients read is gathered before the first
-    scatter, so they see the pre-batch parameters."""
+    scatter, so they see the pre-batch parameters. With ``mesh`` the rows
+    are this rank's lanes of a step of ``batch_size`` rows, and the update
+    is the whole step's (:func:`_whole_batch`)."""
     d, pu, qi, qj = _score_diff(params, users, pos_items, neg, use_biases)
     e = (1.0 / (1.0 + torch.exp(d))) * weight  # masked loss derivative
     wcol = weight[:, None]
-    if use_biases:
-        bi = params.item_biases[pos_items]
-        bj = params.item_biases[neg]
-
-    params.user_factors.index_add_(
-        0, users, e[:, None] * (qi - qj) - user_lambda * pu * wcol, alpha=lr
-    )
+    du = e[:, None] * (qi - qj) - user_lambda * pu * wcol
     epu = e[:, None] * pu
-    params.item_factors.index_add_(
-        0, pos_items, epu - item_lambda * qi * wcol, alpha=lr
-    )
-    params.item_factors.index_add_(
-        0, neg, -epu - item_lambda * qj * wcol, alpha=lr
-    )
+    dpos = epu - item_lambda * qi * wcol
+    dneg = -epu - item_lambda * qj * wcol
+    dbp = dbn = None
     if use_biases:
-        params.item_biases.index_add_(
-            0, pos_items, e - bias_lambda * bi * weight, alpha=lr
-        )
-        params.item_biases.index_add_(
-            0, neg, -e - bias_lambda * bj * weight, alpha=lr
-        )
+        dbp = e - bias_lambda * params.item_biases[pos_items] * weight
+        dbn = -e - bias_lambda * params.item_biases[neg] * weight
+    users, pos_items, neg, du, dpos, dneg, dbp, dbn = _whole_batch(
+        (users, pos_items, neg, du, dpos, dneg, dbp, dbn), batch_size, mesh)
+
+    params.user_factors.index_add_(0, users, du, alpha=lr)
+    params.item_factors.index_add_(0, pos_items, dpos, alpha=lr)
+    params.item_factors.index_add_(0, neg, dneg, alpha=lr)
+    if use_biases:
+        params.item_biases.index_add_(0, pos_items, dbp, alpha=lr)
+        params.item_biases.index_add_(0, neg, dbn, alpha=lr)
     return params
+
+
+def _lanes(batch_size: int, mesh) -> Tuple[int, int]:
+    """This rank's lanes [lo, hi) of a step of ``batch_size`` rows: the
+    ranks' shares in rank order, differing by at most one row (all of the
+    step without a mesh)."""
+    if mesh is None:
+        return 0, batch_size
+    return mesh.lanes(batch_size)
+
+
+# The integer type of each float width: the parts of a step travel as one
+# tensor of such words, the float rows bit for bit.
+_WORDS = {4: torch.int32, 8: torch.int64}
+
+
+def _whole_batch(parts, batch_size: int, mesh):
+    """The whole step's rows of ``parts``, per-lane tensors (ids, gradient
+    rows; None passes through) that each rank computed on its
+    :func:`_lanes`, the ranks' lanes in rank order, so every rank then
+    applies the step as one device would. One all_gather a step: the float
+    rows are viewed as integer words of their width and travel beside the
+    ids, which come back in that integer type. Without a mesh, ``parts``
+    as given."""
+    if mesh is None:
+        return parts
+    live = [i for i, t in enumerate(parts) if t is not None]
+    word = _WORDS[next(parts[i].element_size() for i in live
+                       if parts[i].is_floating_point())]
+    flat = []
+    for i in live:
+        t = parts[i].reshape(parts[i].shape[0], math.prod(parts[i].shape[1:]))
+        flat.append(t.view(word) if t.is_floating_point() else t.to(word))
+    whole = mesh.all_gather_rows(torch.cat(flat, dim=1), batch_size)
+    out = list(parts)
+    for i, piece in zip(live, whole.split([f.shape[1] for f in flat], 1)):
+        if parts[i].is_floating_point():
+            piece = piece.view(parts[i].dtype)
+        out[i] = piece.reshape(batch_size, *parts[i].shape[1:])
+    return out
 
 
 def _sgd_step_body(
@@ -466,8 +510,11 @@ def _sgd_step_body(
     max_degree: int,
     bitmap_words: Optional[torch.Tensor] = None,
     wpu: int = 0,
+    mesh=None,
+    batch_size: int = 0,
 ) -> BPRParams:
-    """One synchronous minibatch update (reference update(), vectorized)."""
+    """One synchronous minibatch update (reference update(), vectorized);
+    with ``mesh``, of this rank's lanes (see :func:`_sgd_update_body`)."""
     neg = _sample_negatives_impl(
         cands,
         users,
@@ -479,7 +526,7 @@ def _sgd_step_body(
     )
     return _sgd_update_body(
         params, users, pos_items, neg, weight, lr, user_lambda, item_lambda,
-        bias_lambda, use_biases=use_biases,
+        bias_lambda, use_biases=use_biases, mesh=mesh, batch_size=batch_size,
     )
 
 
@@ -534,8 +581,10 @@ def _sgd_epoch_impl(
     batch_size: int,
     bitmap_words: Optional[torch.Tensor] = None,
     wpu: int = 0,
+    mesh=None,
 ) -> BPRParams:
-    """A full training epoch with sampling inside each step.
+    """A full training epoch with sampling inside each step (with ``mesh``,
+    each rank samples and computes its lanes of every step).
 
     The reference walks the (shuffled) positive-pair vector once per epoch,
     sampling negatives per pair (BPREngine.cpp:146-176). Here the epoch is
@@ -556,13 +605,14 @@ def _sgd_epoch_impl(
     u_steps = users_flat.reshape(s, batch_size)
     i_steps = items_flat.reshape(s, batch_size)
     w_steps = weights_flat.reshape(s, batch_size)
+    lo, hi = _lanes(batch_size, mesh)
     for t in range(s):
         _sgd_step_body(
             params,
-            cands[t],
-            u_steps[t],
-            i_steps[t],
-            w_steps[t],
+            cands[t][:, lo:hi],
+            u_steps[t, lo:hi],
+            i_steps[t, lo:hi],
+            w_steps[t, lo:hi],
             indptr,
             set_items,
             lr,
@@ -573,6 +623,8 @@ def _sgd_epoch_impl(
             max_degree=max_degree,
             bitmap_words=bitmap_words,
             wpu=wpu,
+            mesh=mesh,
+            batch_size=batch_size,
         )
     return params
 
@@ -1001,6 +1053,7 @@ def _sgd_epoch_scan_grouped_body(
     item_scatter: str = "seq",
     sampler: str = "rounds",
     wpu: int = 0,
+    mesh=None,
 ) -> BPRParams:
     """Grouped-epoch pass 2: minibatch SGD, one row per POSITIVE, in place.
 
@@ -1018,18 +1071,23 @@ def _sgd_epoch_scan_grouped_body(
     "merged" adds them in one (1 + num_neg) * B-row call; "dense" sums them
     into a zeroed (n_items, k) accumulator and adds that densely. The three
     agree to rounding. The loop holds no host read of a device value.
+
+    With ``mesh`` (parallel/mesh.py) each rank computes the gradients of its
+    lanes of every step only, and :func:`_whole_batch` hands every rank the
+    whole step's, which each applies as without a mesh.
     """
     s = u_enc.shape[0] // batch_size
     dev = u_enc.device
     ue_steps = u_enc.reshape(s, batch_size)
     p_steps = pos.reshape(s, batch_size)
-    lane = torch.arange(batch_size, dtype=torch.int32, device=dev)
+    lo, hi = _lanes(batch_size, mesh)
+    lane = torch.arange(lo, hi, dtype=torch.int32, device=dev)
     use_word = sampler == "word"
     tables = _slot_tables(num_neg, n_rounds, use_word, dev)
     uf, itf, ib = params
 
     for t in range(s):
-        ue, p = ue_steps[t], p_steps[t]
+        ue, p = ue_steps[t, lo:hi], p_steps[t, lo:hi]
         w = (ue & 1).to(uf.dtype)
         u = _shift_right_logical(ue, u_shift)
         wcol = w[:, None]
@@ -1053,9 +1111,12 @@ def _sgd_epoch_scan_grouped_body(
         dp = e_sum[:, None] * pu - num_neg * item_lambda * qp * wcol
         # (B, num_neg, k): slot j's update of its negative's row
         dn = -e[:, :, None] * pu[:, None, :] - item_lambda * qn * wcol[:, :, None]
+        dbp = dbn = None
         if use_biases:
             dbp = e_sum - num_neg * bias_lambda * bp * w
             dbn = -e - bias_lambda * bn * wcol
+        u, p, negs, du, dp, dn, dbp, dbn = _whole_batch(
+            (u, p, negs, du, dp, dn, dbp, dbn), batch_size, mesh)
 
         uf.index_add_(0, u, du, alpha=lr)
         if item_scatter in ("merged", "dense"):
@@ -1155,9 +1216,12 @@ def sgd_epoch_grouped_keyed(
     pos_set: Optional[PosSet] = None,
     item_scatter: str = "seq",
     sampler: str = "rounds",
+    mesh=None,
 ):
     """One grouped training epoch on given keys: presample+encode, then the
-    grouped SGD loop.
+    grouped SGD loop. With ``mesh`` every rank presamples the whole epoch
+    (the collision buffer compacts over the whole stream, so a slice cannot
+    be presampled alone) and steps its lanes (parallel/sharded_bpr.py).
 
     Returns (params, n_overflow) where n_overflow is a DEVICE scalar of
     collision-buffer overflows (callers should log when nonzero, reading it
@@ -1214,6 +1278,7 @@ def sgd_epoch_grouped_keyed(
         item_scatter=item_scatter,
         sampler="word" if use_word else "rounds",
         wpu=bitmap.words_per_user if use_word else 0,
+        mesh=mesh,
     )
     return new_params, n_overflow
 
@@ -1334,19 +1399,23 @@ def _sgd_epoch_scan_packed_impl(
     bias_lambda: float,
     use_biases: bool,
     batch_size: int,
+    mesh=None,
 ) -> BPRParams:
-    """Packed legacy epoch, pass 2: minibatch SGD over presampled triplets."""
+    """Packed legacy epoch, pass 2: minibatch SGD over presampled triplets
+    (with ``mesh``, each rank computes its lanes of every step)."""
     s = users_flat.shape[0] // batch_size
     u_steps = users_flat.reshape(s, batch_size)
     p_steps = packed_flat.reshape(s, batch_size)
     w_steps = weights_flat.reshape(s, batch_size).to(
         params.user_factors.dtype)
+    lo, hi = _lanes(batch_size, mesh)
     for t in range(s):
-        p = p_steps[t]
+        p = p_steps[t, lo:hi]
         _sgd_update_body(
-            params, u_steps[t], p >> _PACK_SHIFT,
-            p & ((1 << _PACK_SHIFT) - 1), w_steps[t], lr, user_lambda,
-            item_lambda, bias_lambda, use_biases=use_biases,
+            params, u_steps[t, lo:hi], p >> _PACK_SHIFT,
+            p & ((1 << _PACK_SHIFT) - 1), w_steps[t, lo:hi], lr, user_lambda,
+            item_lambda, bias_lambda, use_biases=use_biases, mesh=mesh,
+            batch_size=batch_size,
         )
     return params
 
@@ -1407,8 +1476,11 @@ def sgd_epoch_drawn(
     batch_size: int,
     bitmap: Optional[PosBitmap] = None,
     n_real: Optional[int] = None,  # real (unpadded) triplet count
+    mesh=None,
 ) -> BPRParams:
-    """One full legacy training epoch on the draws of :func:`draw_epoch`.
+    """One full legacy training epoch on the draws of :func:`draw_epoch`;
+    with ``mesh`` every rank presamples the whole epoch and steps its lanes
+    (parallel/sharded_bpr.py).
 
     When a membership bitmap exists and the item space fits the packing
     bound (n_items <= 2**_PACK_SHIFT), negatives are presampled in one wide
@@ -1439,6 +1511,7 @@ def sgd_epoch_drawn(
             bias_lambda,
             use_biases=use_biases,
             batch_size=batch_size,
+            mesh=mesh,
         )
     reason_key = tuple(reasons)
     if reason_key not in _fallback_logged:
@@ -1474,6 +1547,7 @@ def sgd_epoch_drawn(
         use_biases=use_biases,
         max_degree=pos_set.max_degree,
         batch_size=batch_size,
+        mesh=mesh,
     )
 
 

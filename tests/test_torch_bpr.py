@@ -510,9 +510,11 @@ def test_cli_writes_files_both_packages_read(tmp_path, use_biases):
 
 
 def test_cli_refuses_more_than_one_device(tmp_path):
-    with pytest.raises(ValueError, match="--n_devices=2: the port trains on "
-                                         "one device only"):
-        port_cli.main(["--n_devices=2", "--device=cpu"])
+    """More devices than there are cards, and --n_devices=0 on the CPU,
+    which has no device count, are refused before any rank starts; N CPU
+    ranks run (tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="requested 999 devices"):
+        port_cli.main(["--n_devices=999", "--device=cuda"])
     with pytest.raises(ValueError, match="--n_devices=0"):
         port_cli.main(["--n_devices=0", "--device=cpu"])
 

@@ -399,3 +399,29 @@ def test_gather_rejects_a_strided_table(cuda):
         gather.gather_rows(table[:, ::2], idx)
     with pytest.raises(ValueError, match="contiguous"):
         gather.gather_rows(table.t(), idx)
+
+
+def test_launches_on_their_tensors_device_and_leave_the_current_one(cuda):
+    """With cuda:1 current, the kernels launch on cuda:0 tensors, agree with
+    their plain versions, and cuda:1 is current after each launch (the
+    library sets the CUDA runtime's device; the wrappers' guard gives the
+    caller's back). Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (one current, one launched on)")
+    dev0 = torch.device("cuda", 0)
+    a, b = _spd(37, 30, torch.float32, dev0)
+    with torch.cuda.device(1):
+        got = spd_solve.solve_spd(a, b)
+        assert torch.cuda.current_device() == 1
+        args = _bs_args(13, 64, 30, 0, torch.float32, dev0, seed=1)
+        x, _ = build_solve.build_solve(*args)
+        assert torch.cuda.current_device() == 1
+        table, idx = _gather_inputs(100, 64, 10, torch.float32, torch.int64,
+                                    dev0)
+        rows = gather.gather_rows(table, idx, "vec")
+        assert torch.cuda.current_device() == 1
+    torch.cuda.synchronize(dev0)
+    torch.testing.assert_close(got, spd_solve.solve_spd_reference(a, b),
+                               rtol=2e-4, atol=2e-4)
+    _assert_rowwise_close(x, build_solve.build_solve_reference(*args)[0], 2e-4)
+    assert torch.equal(rows, gather.gather_rows_plain(table, idx))

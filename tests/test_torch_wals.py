@@ -198,10 +198,16 @@ def test_cli_writes_what_the_jax_cli_writes(tmp_path, text_data):
 
 
 def test_cli_rejects_multi_device_and_unknown_metric(text_data):
+    """--n_devices=0 (every device) has no meaning on the CPU, and more
+    cards than the machine has are refused, as qmf_tpu's make_mesh refuses
+    them; N ranks on the CPU run (tests/test_torch_parallel.py)."""
     train_p, _ = text_data
-    with pytest.raises(ValueError, match="ROADMAP"):
-        port_cli.main([f"--train_dataset={train_p}", "--n_devices=2",
+    with pytest.raises(ValueError, match="CPU has no device count"):
+        port_cli.main([f"--train_dataset={train_p}", "--n_devices=0",
                        "--device=cpu"])
+    with pytest.raises(ValueError, match="requested 999 devices"):
+        port_cli.main([f"--train_dataset={train_p}", "--n_devices=999",
+                       "--device=cuda"])
     assert port_cli.main([f"--train_dataset={train_p}", "--device=cpu",
                           "--test_avg_metrics=bogus"]) == 1
 
