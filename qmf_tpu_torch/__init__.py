@@ -16,9 +16,11 @@ plain PyTorch versions run instead. Nothing here imports jax or ``qmf_tpu``: the
 layer that is jax-free in ``qmf_tpu`` (config, data, flags, logging,
 checkpoint) is copied into ``config.py``, ``data/`` and ``utils/``, with the
 same file formats. ``parallel/`` trains both engines over several ranks of
-a ``torch.distributed`` group (``ShardedWALSEngine``, ``ShardedBPREngine``).
+a ``torch.distributed`` group (``ShardedWALSEngine``, ``ShardedBPREngine``),
+and ``distributed/`` with the wals_scheduler, wals_labor and wals_submit
+CLIs runs that engine from a job queue, one worker process a rank.
 
-Not ported yet (ROADMAP.md): the control plane and on-device packing.
+Not ported yet (ROADMAP.md): on-device packing.
 """
 
 __version__ = "0.1.0"

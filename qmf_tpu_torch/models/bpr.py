@@ -49,6 +49,7 @@ from qmf_tpu_torch.ops import als_ops, bpr_ops
 from qmf_tpu_torch.ops.bpr_ops import BPRParams
 from qmf_tpu_torch.utils import checkpoint as ckpt
 from qmf_tpu_torch.utils.logging import log
+from qmf_tpu_torch.utils.tracing import annotate
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -543,7 +544,8 @@ class BPREngine(Engine):
         start_epoch = self._maybe_resume()
         for epoch in range(start_epoch, cfg.nepochs + 1):
             t0 = time.time()
-            self._epoch()
+            with annotate(f"bpr_epoch_{epoch}"):
+                self._epoch()
             # divergence guard (reference CHECK(isfinite), BPREngine.cpp:184);
             # reading it waits for the epoch's device work
             if not bool(torch.isfinite(self.params.user_factors).all()):

@@ -44,6 +44,7 @@ from qmf_tpu_torch.ops.packing import (
 )
 from qmf_tpu_torch.utils import checkpoint as ckpt
 from qmf_tpu_torch.utils.logging import log
+from qmf_tpu_torch.utils.tracing import annotate
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -361,7 +362,8 @@ class WALSEngine(Engine):
             )
         for epoch in range(self._maybe_resume(), self.config.nepochs + 1):
             t0 = time.time()
-            loss = self._epoch()  # float() waits for the device
+            with annotate(f"wals_epoch_{epoch}"):
+                loss = self._epoch()  # float() waits for the device
             dt = time.time() - t0
             log.info(
                 "epoch %d: train loss = %.10g (%.3fs)", epoch, loss, dt

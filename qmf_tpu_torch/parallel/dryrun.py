@@ -9,11 +9,13 @@ the padded factors. Ranks import none of the caller's state.
 
 :func:`dryrun_multichip` is the port's twin of qmf_tpu's
 ``__graft_entry__.dryrun_multichip``: one sharded WALS epoch and one
-sharded BPR epoch on ``n`` ranks (NCCL where ``n`` cards are present, gloo
-on the CPU otherwise), then both engines in float64 against the
-single-device engines on the same data, within 1e-9.
+sharded BPR epoch on ``n`` ranks of the device asked for (NCCL, one card a
+rank, for "cuda"; gloo for the CPU or for ranks sharing one named card),
+then both engines in float64 against the single-device engines on the
+same data, within 1e-9. It never moves to the CPU by itself: "cuda" with
+fewer than ``n`` cards raises.
 
-    python -m qmf_tpu_torch.parallel.dryrun 2
+    python -m qmf_tpu_torch.parallel.dryrun 2 [--device=cpu|cuda|cuda:0]
 """
 
 from __future__ import annotations
@@ -165,14 +167,26 @@ def _dryrun_jobs(n_devices: int) -> dict:
     }
 
 
-def dryrun_multichip(n_devices: int) -> None:
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     """One sharded WALS epoch and one sharded BPR epoch on ``n_devices``
-    ranks, then float64 parity of both engines against the single-device
-    engines within 1e-9. Raises on any failure."""
+    ranks on ``device``, then float64 parity of both engines against the
+    single-device engines within 1e-9. Raises on any failure.
+
+    ``device`` "cuda" gives each rank a card of its own over NCCL, and
+    raises when fewer than ``n_devices`` cards are visible; "cpu" runs
+    gloo ranks on the host; an indexed card ("cuda:0") puts every rank on
+    it over gloo."""
     from qmf_tpu_torch.models import BPREngine, WALSEngine
 
-    cards = torch.cuda.device_count() >= n_devices
-    device = "cuda" if cards else "cpu"
+    dev = torch.device(device)
+    backend = "nccl" if dev.type == "cuda" and dev.index is None else "gloo"
+    cards = torch.cuda.device_count()
+    if backend == "nccl" and cards < n_devices:
+        raise RuntimeError(
+            f"dryrun_multichip({n_devices}) on {device!r}: {cards} CUDA "
+            f"device(s) visible, and NCCL takes one card a rank; pass "
+            f"device='cpu' (--device=cpu) for gloo ranks on the host, or "
+            f"'cuda:0' (--device=cuda:0) for gloo ranks sharing one card")
     data = dryrun_data(n_devices)
     runs = _dryrun_jobs(n_devices)
     with tempfile.TemporaryDirectory(prefix="qmf_dryrun_") as tmp:
@@ -182,7 +196,8 @@ def dryrun_multichip(n_devices: int) -> None:
                  "out": os.path.join(tmp, name)}
                 for name, (engine, cfg) in runs.items()]
         t0 = time.time()
-        launch.spawn(run_jobs, n_devices, device=device, args=(jobs,))
+        launch.spawn(run_jobs, n_devices, backend=backend, device=device,
+                     args=(jobs,))
         wall_s = time.time() - t0
         res = {name: read_result(os.path.join(tmp, name)) for name in runs}
     for name in ("wals", "bpr"):
@@ -209,12 +224,26 @@ def dryrun_multichip(n_devices: int) -> None:
                         "single-device float64 engine")
     path = "grouped" if bool(res["bpr"]["grouped"]) else "legacy-stream"
     print(f"dryrun_multichip OK on {n_devices} {device} ranks "
-          f"({'nccl' if cards else 'gloo'}): WALS epoch "
+          f"({backend}): WALS epoch "
           f"{float(res['wals']['epoch_s'][0]):.3f}s + BPR {path} epoch "
           f"{float(res['bpr']['epoch_s'][0]):.3f}s ({wall_s:.1f} s with "
           "start-up), sharded-vs-single float64 parity within 1e-9 for "
           "both engines")
 
 
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description="multi-rank dry run of the "
+                                "sharded engines")
+    p.add_argument("n_devices", nargs="?", type=int, default=2)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (NCCL, one card a rank) | cpu (gloo) | cuda:N "
+                        "(gloo ranks sharing one card)")
+    args = p.parse_args(argv)
+    dryrun_multichip(args.n_devices, device=args.device)
+    return 0
+
+
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2)
+    sys.exit(main())

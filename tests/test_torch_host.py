@@ -4,7 +4,9 @@ qmf_tpu_torch keeps its own copies of the jax-free host modules (config's
 MetricsConfig, data/, utils/); these tests hold each copy against the
 module it copies, on inputs made from a seed: the same text file reads to
 the same arrays, the same factors write the same bytes, a checkpoint of
-either package loads in the other, and flags, split and the log line agree.
+either package loads in the other, and flags, split and the log line agree;
+so do the control plane's wire protocol and task files
+(distributed/protocol.py, distributed/taskdef.py) and tracing's StepTimer.
 """
 
 import dataclasses
@@ -22,7 +24,10 @@ from qmf_tpu.data import factor_io as jax_factor_io
 from qmf_tpu.data import id_index as jax_id_index
 from qmf_tpu.utils import checkpoint as jax_ckpt
 from qmf_tpu.utils import flags as jax_flags
+from qmf_tpu.distributed import protocol as jax_protocol
+from qmf_tpu.distributed import taskdef as jax_taskdef
 from qmf_tpu.utils import logging as jax_logging
+from qmf_tpu.utils import tracing as jax_tracing
 from qmf_tpu_torch import config as port_config
 from qmf_tpu_torch.cli import gen_uniform as port_gen_uniform_cli
 from qmf_tpu_torch.data import gen_uniform as port_gen_uniform
@@ -31,7 +36,10 @@ from qmf_tpu_torch.data import factor_io as port_factor_io
 from qmf_tpu_torch.data import id_index as port_id_index
 from qmf_tpu_torch.utils import checkpoint as port_ckpt
 from qmf_tpu_torch.utils import flags as port_flags
+from qmf_tpu_torch.distributed import protocol as port_protocol
+from qmf_tpu_torch.distributed import taskdef as port_taskdef
 from qmf_tpu_torch.utils import logging as port_logging
+from qmf_tpu_torch.utils import tracing as port_tracing
 
 # the packages' utils/__init__.py bind the name ``split`` to the function
 jax_split = importlib.import_module("qmf_tpu.utils.split")
@@ -238,3 +246,71 @@ def test_gen_uniform_cli_alike(tmp_path, monkeypatch, argv):
         assert files["port"] == files["jax"]
     with pytest.raises(port_flags.FlagError):
         port_gen_uniform_cli.main(["--bogus=1"])
+
+
+def test_taskdef_fields_and_defaults_alike():
+    def fields(mod):
+        return [(f.name, f.type, f.default)
+                for f in dataclasses.fields(mod.TaskDef)]
+
+    assert fields(port_taskdef) == fields(jax_taskdef)
+    assert port_taskdef.TaskDef().solver == "cholesky"
+
+
+@pytest.mark.parametrize("text", [
+    # the reference's example task file (reference examples/task.pb)
+    'nepochs : 5\nnfactors : 30\ndistribution_file : "../uniform.dat"\n'
+    'train_set : "../n_rating.csv"\nuser_factors : "./user_factors_vec.dat"\n'
+    'item_factors : "./item_factors_vec.dat"\n',
+    '# job\nregularization_lambda : 0.1\nconfidence_weight : 20\n'
+    'train_set : "data#1.csv"  # trailing comment\n'
+    'user_factors : "dir\\\\u.dat"\nitem_factors : \'i\\\'.dat\'\n'
+    'dtype : "float64"\nsolver : "fused"\n',
+    "nepochs : 5\n",
+    'bogus : 1\ntrain_set : "x"\n',
+    'train_set : "open\n',
+    "nonsense ::",
+], ids=["reference_example", "comments_escapes_extensions", "missing",
+        "unknown", "unterminated", "malformed"])
+def test_taskdef_parse_alike(text):
+    try:
+        want = jax_taskdef.parse_taskdef(text)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            port_taskdef.parse_taskdef(text)
+        assert str(got.value) == str(e)
+        return
+    got = port_taskdef.parse_taskdef(text)
+    assert got.to_dict() == want.to_dict()
+    assert port_taskdef.TaskDef.from_dict(want.to_dict()) == got
+
+
+@pytest.mark.parametrize("msg", [
+    {"kind": "status"},
+    {"kind": "task_start", "taskid": 3, "task": {"train_set": "t#1.txt"},
+     "coordinator": "127.0.0.1:29500", "num_processes": 2, "process_id": 1,
+     "n_local_devices": 0, "worker_timeout": 3600.0},
+    {"kind": "progress", "loss": 0.125, "text": "\u00e9\"\\", "x": [1, None]},
+], ids=["status", "task_start", "unicode"])
+def test_encode_frame_byte_equal(msg):
+    assert port_protocol.encode_frame(msg) == jax_protocol.encode_frame(msg)
+    assert port_protocol.MAGIC == jax_protocol.MAGIC
+    assert port_protocol.MAX_FRAME == jax_protocol.MAX_FRAME
+    assert port_protocol.HEARTBEAT_INTERVAL_S == \
+        jax_protocol.HEARTBEAT_INTERVAL_S
+
+
+def test_step_timer_alike(monkeypatch):
+    """The same clock readings give the same records and summary."""
+    ticks = iter([10.0, 10.5, 11.0, 13.0, 20.0, 20.25] * 2)
+    monkeypatch.setattr("time.time", lambda: next(ticks))
+    timers = []
+    for mod in (port_tracing, jax_tracing):
+        t = mod.StepTimer()
+        for name in ("epoch", "epoch", "save"):
+            with t.measure(name):
+                pass
+        timers.append(t)
+    assert timers[0].records == timers[1].records == {
+        "epoch": [0.5, 2.0], "save": [0.25]}
+    assert timers[0].summary() == timers[1].summary()

@@ -378,9 +378,22 @@ def test_checkpoints_resume_across_one_and_two_ranks(sharded2, data):
 
 
 def test_dryrun_multichip_two_ranks(capsys):
-    dryrun_multichip(2)
+    dryrun_multichip(2, device="cpu")
     assert "dryrun_multichip OK on 2 cpu ranks (gloo)" in \
         capsys.readouterr().out
+
+
+@pytest.mark.parametrize("call", ["function", "cli"])
+def test_dryrun_multichip_refuses_cuda_without_the_cards(call):
+    """A bare "cuda" with fewer cards than ranks raises with the reason
+    (NCCL takes one card a rank) instead of moving to the CPU."""
+    from qmf_tpu_torch.parallel import dryrun
+
+    with pytest.raises(RuntimeError, match="NCCL takes one card a rank"):
+        if call == "function":
+            dryrun_multichip(2, device="cuda")
+        else:
+            dryrun.main(["2"])
 
 
 @pytest.fixture(scope="module")

@@ -278,7 +278,12 @@ def test_port_imports_nothing_of_qmf_tpu():
                 "cli/recommend.py", "cli/gen_uniform.py", "models/bpr.py",
                 "cli/bpr.py",
                 "data/gen_uniform.py", "tools/gather_micro.py",
-                "tools/vmem_gather_micro.py"):
+                "tools/vmem_gather_micro.py", "distributed/protocol.py",
+                "distributed/taskdef.py", "distributed/worker.py",
+                "distributed/scheduler.py", "distributed/labor.py",
+                "distributed/submit.py", "cli/wals_scheduler.py",
+                "cli/wals_labor.py", "cli/wals_submit.py",
+                "utils/tracing.py"):
         assert os.path.join(pkg, new) in files
     bad = []
     for path in files + [os.path.join(REPO, "chip_smoke.py")]:
