@@ -7,7 +7,8 @@ from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a),
 PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
 
 0. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-1. build the CUDA kernels from csrc/ (nvcc, sm_90a);
+1. build the host I/O library from csrc/host_io.cpp (g++) and the CUDA
+   kernels from csrc/ (nvcc, sm_90a), each build's seconds;
 2. the kernel against its plain PyTorch version, f32 and f64, through its
    batch-first entry (solve_spd), its batch-last entry (cholesky_solve_t on
    a (k, k, B) buffer) and solve_spd(layout="t"), k in {1, 8, 16, 30, 31,
@@ -21,9 +22,14 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    the bound and the systems per block;
 3. the CLI main path at ml100k scale with CLI defaults (k = 30): launch
    count, factor files, test AUC, and the factors against a plain-cholesky
-   run on the card;
-4. the WALSEngine at ml20m scale and k = 64, 3 epochs: epoch times and
-   losses, AUC, launch count (and launches per epoch), peak memory; then
+   run on the card; the read and the save through the native library
+   (data/native.py), whose reader gives the numpy reader's arrays on both
+   files and whose writer the Python writer's bytes on the trained factors;
+4. the WALSEngine at ml20m scale and k = 64, 3 epochs: the pack's kind
+   (device-packed), init's stages and peak memory, and every class's four
+   tensors against a host pack of the same data, element for element, with
+   both packs' seconds; epoch times and losses, AUC, launch count (and
+   launches per epoch), peak memory; then
    the kernel against the plain version on that run's largest width class;
    then (4p) the split path's user half-epoch under torch.profiler: device
    ms, chol_solve_kernel's time, the largest kernels by device time;
@@ -35,8 +41,9 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    and on its widest item class;
 6. solver="fused": the CLI at ml100k (the variant without the hot head),
    then WALSEngine at ml20m, k = 64, with hot_width = 1024 on phase 4's
-   data, 3 epochs: epoch times against phase 4's, losses, AUC within 2e-3
-   of phase 4's, launch counts, peak memory; then the hot variant against
+   data, 3 epochs: init's stages, epoch times against phase 4's, losses,
+   AUC within 2e-3 of phase 4's, launch counts, peak memory; then the hot
+   variant against
    its plain version on that run's largest user class, checked and timed;
    then each item class of the fused+hot path, and the user and item
    half-epochs of the split, fused and fused+hot paths, timed in turns;
@@ -74,8 +81,9 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    device ms, launches, the largest kernels by device time, the host's ops
    by their own CPU time.
 10. the sharded engines (qmf_tpu_torch/parallel): (a) ShardedWALSEngine
-   over NCCL at world 1 on phase 4's data, the split path and fused with
-   hot_width = 1024, 2 epochs each, against epochs 1-2 of phases 4 and 6
+   over NCCL at world 1 on phase 4's data (device-packed, init's stages),
+   the split path and fused with hot_width = 1024, 2 epochs each, against
+   epochs 1-2 of phases 4 and 6
    (bit-for-bit equality printed, normwise error held at 5x phase 2's f32
    bound), with epoch seconds, launches and collective bytes per
    half-epoch, and its half-epochs with and without the mesh in turns;
@@ -98,8 +106,10 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    task of k = 64, 3 epochs, solver "auto" on a wals_scheduler with no
    labor, submitted and polled with wals_submit, against the wals CLI on
    the same files (byte for byte, and normwise within 5x phase 2's f32
-   bound): the worker's chol_solve launches, epochs, losses and start-up
-   stages, AUC on phase 4's 3,000 test users within 2e-3 of phase 4's; (b)
+   bound): the worker's chol_solve launches, epochs, losses, start-up
+   stages and init's stages, the worker's and the CLI's read and save
+   through the native library, the worker's pack on the card, AUC on phase
+   4's 3,000 test users within 2e-3 of phase 4's; (b)
    wals_scheduler --backend=gloo --device=cuda:0 and one wals_labor on
    phase 3's ml100k files, two ranks sharing the card: a float32 "fused"
    task (build_solve launches on both ranks, AUC within 2e-3 of phase 6's
@@ -110,11 +120,10 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    utils.tracing.trace: the trace holds wals_epoch_1 and every chol_solve
    kernel of the epoch inside it. Then the launches of each kernel there.
 
-Then the run's seconds, a JSON line describing each kernel (times,
-launches, errors, and the bound: the larger of the bytes it must move over
-3.35 TB/s and its operations over the peak rate of their type), and as the
-last line
-``{"ok": true, "device": {...}}``. Any failure raises, and the exit code is
+Then the run's seconds on a line of their own, a JSON line describing each
+kernel (times, launches, errors, and the bound: the larger of the bytes it
+must move over 3.35 TB/s and its operations over the peak rate of their
+type), and as the last line ``{"ok": true, "device": {...}}``. Any failure raises, and the exit code is
 not 0. There is no CPU path: without a CUDA device it fails at phase 0.
 """
 
@@ -247,15 +256,25 @@ def card() -> str:
 
 
 def build() -> None:
-    """Phase 1: compile the kernels from the checkout's sources."""
+    """Phase 1: compile the host I/O library (g++) and the kernels (nvcc)
+    from the checkout's sources."""
     from qmf_tpu_torch import kernels
+    from qmf_tpu_torch.data import native
 
     t0 = time.time()
+    host_lib = native.build()  # raises: no quiet fallback on the card's host
+    if not native.available():
+        raise RuntimeError(f"host I/O library: {native.unavailable_reason()}")
+    host_s = time.time() - t0
+    t1 = time.time()
     kernels.load()
     for ln in kernels.build_log.splitlines():
         if "registers" in ln or "spill" in ln:
             print("  ptxas:", ln.strip(), flush=True)
-    _line("1 build", t0, lib=os.path.relpath(kernels.LIB_PATH))
+    _line("1 build", t0, lib=os.path.relpath(kernels.LIB_PATH),
+          cuda_build_s=round(time.time() - t1, 3),
+          host_io_lib=os.path.relpath(host_lib),
+          host_io_build_s=round(host_s, 3))
 
 
 def _spd_np(bsz: int, k: int, seed: int):
@@ -508,6 +527,7 @@ def cli_path(preset: str = "ml100k", device: str = "cuda",
     from benchmarks.datagen import PRESETS, generate, write_ratings
     from qmf_tpu_torch import WALSConfig
     from qmf_tpu_torch.cli import wals as cli
+    from qmf_tpu_torch.data import native
     from qmf_tpu_torch.models import WALSEngine
     from qmf_tpu_torch.ops import spd_solve
 
@@ -522,6 +542,7 @@ def cli_path(preset: str = "ml100k", device: str = "cuda",
         for name, ds in (("train.txt", train), ("test.txt", test)):
             write_ratings(paths[name], ds.user_ids, ds.item_ids, ds.values)
         spd_solve.launches = 0
+        native.last_path.update(read=None, write=None)
         rc = cli.main([
             f"--train_dataset={paths['train.txt']}",
             f"--test_dataset={paths['test.txt']}",
@@ -533,6 +554,10 @@ def cli_path(preset: str = "ml100k", device: str = "cuda",
         launches = spd_solve.launches
         if rc != 0:
             raise AssertionError(f"wals CLI returned {rc}")
+        io_path = dict(native.last_path)
+        if io_path != {"read": "native", "write": "native"}:
+            raise AssertionError(f"the CLI's read and save took {io_path}")
+        read_same = _native_read_parity(paths["train.txt"], paths["test.txt"])
         auc, u_file, v_file, (uids, iids) = _auc_of_files(
             paths["user.dat"], paths["item.dat"], test, device)
     if launches != expect:
@@ -554,11 +579,52 @@ def cli_path(preset: str = "ml100k", device: str = "cuda",
     )
     if not diff <= 2e-3:
         raise AssertionError(f"kernel vs plain-cholesky factors: {diff}")
+    write_same = _native_write_parity(plain)
     torch.cuda.empty_cache()
     _line("3 cli", t0, preset=preset, ratings=len(train),
           launches=launches, expected=expect, test_auc=auc,
-          max_abs_factor_diff_vs_cholesky=diff)
+          max_abs_factor_diff_vs_cholesky=diff, io_path=io_path,
+          native_read_equal_to_numpy=read_same,
+          native_write_bytes_equal_to_python=write_same)
     return paths
+
+
+def _native_read_parity(*paths: str) -> bool:
+    """Phase 3: the native reader's arrays against the numpy reader's on
+    each file, or raise."""
+    import numpy as np
+
+    from qmf_tpu_torch.data import native
+    from qmf_tpu_torch.data.dataset import _read_numpy
+
+    for path in paths:
+        got, want = native.read_dataset(path), _read_numpy(path)
+        if not all(np.array_equal(getattr(got, f), getattr(want, f))
+                   for f in ("user_ids", "item_ids", "values")):
+            raise AssertionError(f"{path}: native and numpy readers differ")
+    return True
+
+
+def _native_write_parity(engine) -> bool:
+    """Phase 3: the native writer's bytes against the Python writer's on
+    ``engine``'s trained factors, with and without biases, or raise."""
+    from qmf_tpu_torch.data import native
+    from qmf_tpu_torch.data.factor_io import write_factors_python
+
+    with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as tmp:
+        for side in ("user", "item"):
+            ids = getattr(engine, f"{side}_index").ids
+            f = getattr(engine, f"{side}_factors").cpu().double().numpy()
+            for biases in (None, f[:, 0] * 3):
+                out = [os.path.join(tmp, n) for n in ("native", "python")]
+                native.write_factors(out[0], ids, f, biases)
+                write_factors_python(out[1], ids, f, biases)
+                with open(out[0], "rb") as a, open(out[1], "rb") as b:
+                    if a.read() != b.read():
+                        raise AssertionError(
+                            f"{side} factors: native and Python writers "
+                            f"differ (biases: {biases is not None})")
+    return True
 
 
 def ml20m_data(preset: str = "ml20m"):
@@ -594,6 +660,10 @@ def model_scale(data, t_data: float, device: str = "cuda",
     engine.init_test(test)
     torch.cuda.synchronize()
     t_init = time.time() - t1
+    init_peak = torch.cuda.max_memory_allocated()
+    if engine._pack_kind != "device-packed":
+        raise AssertionError(f"phase 4 was {engine._pack_kind}")
+    host_stages = _host_pack_equal(engine, train)
     epochs = []
     engine.progress_cb = _recorder(engine, epochs)
     n_classes = len(engine._user_classes) + len(engine._item_classes)
@@ -635,7 +705,12 @@ def model_scale(data, t_data: float, device: str = "cuda",
                              f"error {scaled} (max abs {err}, max|x| {scale})")
     _line("4 ml20m", t0, users=engine.nusers, items=engine.nitems,
           ratings=len(train), k=K_MAIN, data_s=round(t_data, 3),
-          init_s=round(t_init, 3),
+          init_s=round(t_init, 3), pack=engine._pack_kind,
+          init_stages=_stages(engine), init_peak_bytes=init_peak,
+          device_pack_s=_pack_s(engine._init_stages),
+          host_pack_s=_pack_s(host_stages), host_pack_init_stages={
+              k: round(v, 3) for k, v in host_stages.items()},
+          host_pack_classes_equal=True,
           epoch_s=[round(dt, 4) for _, _, dt, _ in epochs],
           losses=[f"{x:.10g}" for x in losses], test_auc=auc,
           classes=n_classes, launches=launches,
@@ -645,6 +720,50 @@ def model_scale(data, t_data: float, device: str = "cuda",
     return {"launches": launches, "max_abs_err": err, "engine": engine,
             "auc": auc, "epoch_s": [dt for _, _, dt, _ in epochs],
             "epochs": epochs}
+
+
+def _stages(engine) -> dict:
+    """An engine's init stages, in ms-rounded seconds."""
+    return {k: round(v, 3) for k, v in engine._init_stages.items()}
+
+
+def _pack_s(stages: dict) -> float:
+    """Seconds of both sides' pack."""
+    return round(stages["pack_user"] + stages["pack_item"], 3)
+
+
+def _host_pack_equal(engine, train) -> dict:
+    """Phase 4: the same data and configuration packed once more on the
+    host; every class's four tensors must equal the device pack's, element
+    for element. Returns the host-packed engine's init stages."""
+    import dataclasses
+
+    import torch
+
+    from qmf_tpu_torch.models import WALSEngine
+
+    host = WALSEngine(dataclasses.replace(engine.config, device_pack=False),
+                      device=engine.device)
+    host.init(train)
+    if host._pack_kind != "host-packed":
+        raise AssertionError(f"the host pack was {host._pack_kind}")
+    for side in ("user", "item"):
+        got, want = (getattr(e, f"_{side}_classes") for e in (engine, host))
+        if getattr(engine, f"_{side}_chunks") != \
+                getattr(host, f"_{side}_chunks") or len(got) != len(want):
+            raise AssertionError(f"{side}: device and host packs differ in "
+                                 "their classes or chunks")
+        for i, (g, w) in enumerate(zip(got, want)):
+            for name, a, b in zip(("row_ids", "col_idx", "values", "mask"),
+                                  g, w):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"{side} class {i}: {name} of the "
+                                         "device pack differs from the host "
+                                         "pack's")
+    stages = host._init_stages
+    del host
+    torch.cuda.empty_cache()
+    return stages
 
 
 def _bs_inputs(n: int, d: int, k: int, h: int, dtype, seed: int,
@@ -978,6 +1097,7 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
     _line("6 fused", t0, cli_preset="ml100k", cli_launches=cli_launches,
           cli_test_auc=cli_auc, users=engine.nusers, items=engine.nitems,
           k=K_MAIN, hot_width=HOT_WIDTH, init_s=round(t_init, 3),
+          pack=engine._pack_kind, init_stages=_stages(engine),
           epoch_s=[round(dt, 4) for _, _, dt, _ in epochs],
           split_epoch_s=[round(dt, 4) for dt in split["epoch_s"]],
           losses=[f"{x:.10g}" for x in losses], test_auc=auc,
@@ -1778,7 +1898,8 @@ def _sharded_wals_w1(mesh, train, want: list, **kw) -> dict:
     if not err <= 5 * F32_TOL:
         raise AssertionError(f"world-1 sharded WALS {kw} vs single device: "
                              f"normwise factor error {err}")
-    return {"init_s": round(t_init, 3),
+    return {"init_s": round(t_init, 3), "pack": engine._pack_kind,
+            "init_stages": _stages(engine),
             "epoch_s": [round(e[2], 4) for e in epochs],
             "single_epoch_s": [round(e[2], 4) for e in want[:2]],
             "losses": [f"{e[1]:.10g}" for e in epochs],
@@ -2270,7 +2391,7 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
     from qmf_tpu_torch import WALSConfig
     from qmf_tpu_torch.cli import gen_uniform
     from qmf_tpu_torch.cli import wals as cli
-    from qmf_tpu_torch.data import load_factors, read_dataset
+    from qmf_tpu_torch.data import load_factors, native, read_dataset
     from qmf_tpu_torch.models import WALSEngine
     from qmf_tpu_torch.ops import spd_solve
     from qmf_tpu_torch.utils.tracing import trace
@@ -2300,6 +2421,7 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
         cp.close()
     res = entry["result"]
     spd_solve.launches = 0
+    native.last_path.update(read=None, write=None)
     t1 = time.time()
     rc = cli.main([f"--{k}={v}" for k, v in task.items()
                    if k != "train_set"] + [
@@ -2307,13 +2429,17 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
         f"--user_factors={files['su.dat']}",
         f"--item_factors={files['si.dat']}"])
     cli_s, cli_launches = time.time() - t1, spd_solve.launches
+    cli_io = dict(native.last_path)
     same, err = _factor_files_err((files["du.dat"], files["di.dat"]),
                                   (files["su.dat"], files["si.dat"]))
     auc = _auc_of_files(files["du.dat"], files["di.dat"], test, device,
                         CP_TEST_USERS)[0]
     n = res["launches"]["chol_solve"]
+    native_io = {"read": "native", "write": "native"}
     if not (rc == 0 and n > 0 and n == cli_launches
             and res["solver"] == "kernel" and err <= 5 * F32_TOL
+            and res["io"] == native_io == cli_io
+            and res["pack"] == "device-packed"
             and abs(auc - split["auc"]) <= 2e-3):
         raise AssertionError(
             f"11a: rc {rc}, worker {res}, CLI launches {cli_launches}, "
@@ -2323,6 +2449,8 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
           write_ratings_s=round(write_s, 3), task_s=round(
               entry["finished"] - entry["started"], 3),
           worker_wall_s=res["wall_s"], worker_stages=res["stages"],
+          worker_init_stages=res["init_stages"], worker_pack=res["pack"],
+          worker_io_path=res["io"], cli_io_path=cli_io,
           epoch_s=res["epoch_s"], phase4_epoch_s=[
               round(x, 4) for x in split["epoch_s"]],
           losses=[f"{x:.10g}" for x in res["losses"]],

@@ -9,9 +9,8 @@ default.
 and defaults).
 
 Every enum is validated when the config is built, so a typo fails before any
-data is read. ``qmf_tpu`` knobs that the port does not implement yet
-(``device_pack``, ``class_solve``, ``fuse_epoch``) are not fields here; see
-ROADMAP.md.
+data is read. ``qmf_tpu`` knobs that the port does not implement
+(``class_solve``, ``fuse_epoch``) are not fields here; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -87,6 +86,12 @@ class WALSConfig:
     # cost model was fitted on a TPU, and no H100 measurement shows yet that
     # the split pays (ROADMAP.md).
     hot_width: int | str = "auto"
+    # Build the width classes on the device (ops/device_pack.py): the COO
+    # goes to the card once and is sorted and gathered there, instead of
+    # packed in numpy and copied. "auto" is on for float32 on a CUDA device
+    # and off on the CPU and for float64, as in qmf_tpu; the sharded engine
+    # packs on the host at a world of more than one rank.
+    device_pack: bool | str = "auto"
 
     def __post_init__(self) -> None:
         if self.solver in _REJECTED_SOLVERS:
@@ -113,6 +118,12 @@ class WALSConfig:
         ):
             raise ValueError(
                 f"WALS hot_width must be 'auto' or an int >= 0, got {hw!r}"
+            )
+        if not (self.device_pack == "auto"
+                or isinstance(self.device_pack, bool)):
+            raise ValueError(
+                "WALS device_pack must be 'auto', True or False, got "
+                f"{self.device_pack!r}"
             )
 
 

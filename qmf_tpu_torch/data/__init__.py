@@ -2,9 +2,9 @@
 
 The port keeps its own copies of ``qmf_tpu.data``'s numpy modules, so that it
 imports nothing of ``qmf_tpu``. The on-disk formats are the same, so files
-pass between the two packages unchanged. Left out: ``native`` (the C++
-parser and writer of ``qmf_tpu/_native``): the port reads with numpy or
-Python and writes factors with Python.
+pass between the two packages unchanged. ``native`` binds the port's copy
+of the C++ parser and writer of ``qmf_tpu/_native`` (``csrc/host_io.cpp``,
+built at first use); the numpy and Python paths are its fallbacks.
 """
 
 from qmf_tpu_torch.data.dataset import Dataset, read_dataset, write_dataset  # noqa: F401

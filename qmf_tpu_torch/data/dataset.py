@@ -1,6 +1,7 @@
 """Ratings dataset: text reader/writer and the in-memory COO container.
 
-Copy of qmf_tpu/data/dataset.py without its native C++ reader.
+Copy of qmf_tpu/data/dataset.py; its native C++ reader is the port's own
+copy (data/native.py).
 
 The on-disk format is the reference's: one ``"<user> <item> <value>"`` triple
 per line, whitespace separated (reference qmf/DatasetReader.cpp:29-42, parsed
@@ -13,8 +14,11 @@ triple — the layout every downstream device computation (segment packing,
 gathers, einsums) actually wants.
 
 Reading uses, in order of preference:
-1. a vectorized numpy parse (fast C-level parse via ``np.fromstring``), or
-2. a pure-Python line loop (exact int64 parsing, arbitrary whitespace).
+1. the native C++ parser (data/native.py: mmap + a parse on every core), or,
+   where that library cannot be built or loaded,
+2. a vectorized numpy parse (fast C-level parse via ``np.fromstring``), or
+3. a pure-Python line loop (exact int64 parsing, arbitrary whitespace).
+``native.last_path["read"]`` names the path the last read took.
 """
 
 from __future__ import annotations
@@ -117,13 +121,24 @@ def _read_numpy(path: str) -> Dataset:
 
 def read_dataset(path: str) -> Dataset:
     """Read a ratings text file into a :class:`Dataset`."""
+    from qmf_tpu_torch.data import native
+
     if not os.path.exists(path):
         raise FileNotFoundError(path)
+    if native.available():
+        native.last_path["read"] = "native"
+        return native.read_dataset(path)
     try:
         with np.errstate(all="ignore"):
-            return _read_numpy(path)
+            ds = _read_numpy(path)
+        native.last_path["read"] = "numpy"
     except ValueError:
-        return _read_python(path)
+        ds = _read_python(path)
+        native.last_path["read"] = "python"
+    log.warning("read %s with the %s reader: the native reader is "
+                "unavailable (%s)", path, native.last_path["read"],
+                native.unavailable_reason())
+    return ds
 
 
 def write_dataset(dataset: Dataset, path: str) -> None:

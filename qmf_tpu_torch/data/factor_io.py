@@ -10,8 +10,10 @@ of truth between epochs.
 qmf/Engine.cpp:98-122) — so factor files are interchangeable between the two
 implementations.
 
-Copy of qmf_tpu/data/factor_io.py without its native C++ writer: the Python
-writer here gives the same bytes.
+Copy of qmf_tpu/data/factor_io.py. Its native C++ writer is the port's own
+copy (data/native.py), taken first; the Python writer here, the fallback
+where that library cannot be built or loaded, gives the same bytes.
+``native.last_path["write"]`` names the path the last save took.
 """
 
 from __future__ import annotations
@@ -88,19 +90,36 @@ class FactorData:
         log.info("initialized factor from file size: %d", count)
 
 
+def write_factors_python(file_name: str, ids: np.ndarray, factors: np.ndarray,
+                         biases: Optional[np.ndarray]) -> None:
+    """The Python writer: ``id [bias] f0 ... f{k-1}`` lines at 9 decimals,
+    the bytes of ``native.write_factors``."""
+    with open(file_name, "w") as out:
+        for idx in range(factors.shape[0]):
+            parts = [str(ids[idx])]
+            if biases is not None:
+                parts.append(f"{biases[idx]:.9f}")
+            parts.extend(f"{v:.9f}" for v in factors[idx])
+            out.write(" ".join(parts) + "\n")
+
+
 def save_factors(factor_data: FactorData, index: IdIndex, file_name: str) -> None:
     """Write factors in the reference's 9-decimal fixed-point text format."""
+    from qmf_tpu_torch.data import native
+
     if factor_data.nelems != index.size:
         raise ValueError(
             f"factor rows ({factor_data.nelems}) != index size ({index.size})"
         )
-    with open(file_name, "w") as out:
-        for idx in range(factor_data.nelems):
-            parts = [str(index.id(idx))]
-            if factor_data.with_biases:
-                parts.append(f"{factor_data.biases[idx]:.9f}")
-            parts.extend(f"{v:.9f}" for v in factor_data.factors[idx])
-            out.write(" ".join(parts) + "\n")
+    args = (file_name, index.ids, factor_data.factors, factor_data.biases)
+    if native.available():
+        native.last_path["write"] = "native"
+        native.write_factors(*args)
+        return
+    native.last_path["write"] = "python"
+    log.warning("writing %s with the python writer: the native writer is "
+                "unavailable (%s)", file_name, native.unavailable_reason())
+    write_factors_python(*args)
 
 
 def load_factors(

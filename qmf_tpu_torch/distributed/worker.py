@@ -120,15 +120,16 @@ def run_worker(
     spawning agent tails it and forwards progress to the scheduler.
 
     Returns a result dict (on every rank; only rank 0's is reported), with
-    the kernels' launches, each epoch's loss and seconds, and the seconds
-    of each start-up stage.
+    the kernels' launches, each epoch's loss and seconds, the seconds of
+    each start-up stage and of each stage of the engine's init, and the
+    paths the read and the save took (``data.native.last_path``).
     """
     t_start = time.time()
     dev = worker_device(n_local_devices, device)
     import torch
     import torch.distributed as dist
 
-    from qmf_tpu_torch.data import read_dataset
+    from qmf_tpu_torch.data import native, read_dataset
     from qmf_tpu_torch.ops import build_solve, spd_solve
     from qmf_tpu_torch.parallel import ShardedWALSEngine, multihost
 
@@ -224,6 +225,11 @@ def run_worker(
         "losses": losses,
         "epoch_s": [round(s, 4) for s in epoch_s],
         "stages": {k: round(v, 3) for k, v in stages.items()},
+        # init_s by stage, the pack's kind, and the read's and save's path
+        "init_stages": {k: round(v, 3)
+                        for k, v in engine._init_stages.items()},
+        "pack": engine._pack_kind,
+        "io": dict(native.last_path),
     }
 
 

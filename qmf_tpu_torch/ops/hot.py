@@ -102,9 +102,9 @@ def auto_hot_width(
 
 
 def build_hot_classes(
-    hot_rows: np.ndarray,  # (nh,) build-side row ids of the hot entries
-    hot_ranks: np.ndarray,  # (nh,) their columns' ranks in [0, h)
-    hot_vals: np.ndarray,  # (nh,) ratings
+    hot_rows,  # (nh,) build-side row ids of the hot entries
+    hot_ranks,  # (nh,) their columns' ranks in [0, h)
+    hot_vals,  # (nh,) ratings
     class_row_ids: Sequence[np.ndarray],  # packed row ids per width class
     n_rows: int,
     h: int,
@@ -117,7 +117,9 @@ def build_hot_classes(
 
     ``class_row_ids`` is each class's host-side packed row-id vector
     (padding rows hold ``n_rows``); the W rows line up 1:1 so the build
-    slices W chunks alongside the class's (col_idx, values, mask).
+    slices W chunks alongside the class's (col_idx, values, mask). The hot
+    COO comes as numpy arrays (the host pack) or as tensors on ``device``
+    (the device pack's ``split_sorted_csr``).
     W_a and W_b are computed in ``compute_dtype`` and stored in
     ``store_dtype``; conf_hot stays in ``compute_dtype``.
     """
@@ -136,10 +138,9 @@ def build_hot_classes(
         real = ids < n_rows
         pos[ids[real]] = off + np.nonzero(real)[0]
         off += len(ids)
-    slot = torch.from_numpy(pos[np.asarray(hot_rows, dtype=np.int64)]).to(
-        device)
-    idx = slot * h + torch.from_numpy(
-        np.asarray(hot_ranks, dtype=np.int64)).to(device)
+    slot = torch.from_numpy(pos).to(device)[
+        torch.as_tensor(hot_rows).to(device, torch.int64)]
+    idx = slot * h + torch.as_tensor(hot_ranks).to(device, torch.int64)
     aw = torch.tensor(alpha, dtype=compute_dtype, device=device) * (
         torch.as_tensor(hot_vals, device=device).to(compute_dtype))
     # slot n_slots is the sink of rows that have no packed slot (index_add_

@@ -85,6 +85,7 @@ def _run_wals(mesh: Mesh, job: dict) -> dict:
         "build_solve_launches": build_solve.launches,
         "build_solve_hot_launches": build_solve.launches_hot,
         "solver": eng._solver,
+        "pack_kind": eng._pack_kind,
     }
     # after optimize: the Gramian's collective is not in the counts above
     out.update({f"collective_{k}": v for k, v in mesh.counts.items()})

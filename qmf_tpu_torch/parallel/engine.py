@@ -47,6 +47,13 @@ class ShardedWALSEngine(WALSEngine):
         super().__init__(config, metrics_engine, device=self.mesh.device)
         self._pad_users = self._pad_items = 0
 
+    def _use_device_pack(self) -> bool:
+        # each rank is a process with the whole COO on the host; packing on
+        # the card at a world of several would need the COO laid out over
+        # the ranks first, so such a run keeps the host pack, as qmf_tpu's
+        # multi-process run does (qmf_tpu/parallel/engine.py:88-94)
+        return self.mesh.size == 1 and super()._use_device_pack()
+
     # --- the placement hooks of WALSEngine.init -----------------------------
     def _row_multiple(self) -> int:
         # every class and scan chunk splits evenly into the ranks' blocks

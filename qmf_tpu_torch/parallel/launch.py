@@ -3,12 +3,14 @@
 JAX drives every device from one process; PyTorch runs one process per
 rank. :func:`spawn` starts ``n`` of them with ``torch.multiprocessing``'s
 spawn method on a free local port, joins each to one process group, calls
-``fn(mesh, *args)`` in each and waits for all of them against a deadline:
-if a rank fails or the deadline passes, every rank is killed and the call
-raises. The group's own timeout (multihost.GROUP_TIMEOUT_S) bounds each
-collective. ``fn`` must be importable by name (a module-level function of
-the package), since spawned ranks import it afresh; results go through
-files.
+``fn(mesh, *args)`` in each and waits for all of them, against a deadline
+unless it is None: if a rank fails or the deadline passes, every rank is
+killed and the call raises. The training CLIs (:func:`run_cli`) wait with
+no deadline, as qmf_tpu's ``--n_devices`` does; the dry run and the tests
+keep one. The group's own timeouts (multihost.GROUP_TIMEOUT_S,
+COLLECTIVE_TIMEOUT_S) bound the rendezvous and each collective. ``fn`` must
+be importable by name (a module-level function of the package), since
+spawned ranks import it afresh; results go through files.
 
     from qmf_tpu_torch.parallel import launch
     launch.spawn(train, 2, backend="gloo", device="cpu", args=(path,))
@@ -56,7 +58,7 @@ def _rank_main(rank: int, fn: Callable, n: int, backend: Optional[str],
 
 def spawn(fn: Callable, n: int, backend: Optional[str] = None,
           device: str = "cpu", args: Sequence = (),
-          deadline_s: float = DEADLINE_S) -> None:
+          deadline_s: Optional[float] = DEADLINE_S) -> None:
     """Run ``fn(mesh, *args)`` on ``n`` new local ranks of one group.
 
     ``device`` is each rank's ("cuda" gives rank r the card cuda:r;
@@ -64,7 +66,7 @@ def spawn(fn: Callable, n: int, backend: Optional[str] = None,
     ``backend`` defaults to NCCL for CUDA and gloo for the CPU. The CUDA
     kernels are built here first, so the ranks do not queue behind one
     nvcc run with the group's timeout running. Raises if a rank raises
-    (with its traceback) or when ``deadline_s`` passes.
+    (with its traceback) or when ``deadline_s`` passes (None: no deadline).
     """
     dev = torch.device(device)
     if (backend or ("nccl" if dev.type == "cuda" else "gloo")) == "nccl" \
@@ -81,10 +83,10 @@ def spawn(fn: Callable, n: int, backend: Optional[str] = None,
         _rank_main, args=(fn, n, backend, device, free_port(), threads,
                           tuple(args)),
         nprocs=n, join=False, start_method="spawn")
-    end = time.monotonic() + deadline_s
+    end = None if deadline_s is None else time.monotonic() + deadline_s
     try:
         while not ctx.join(timeout=1.0):
-            if time.monotonic() > end:
+            if end is not None and time.monotonic() > end:
                 raise TimeoutError(
                     f"{n} ranks of {fn.__module__}.{fn.__qualname__} still "
                     f"running after {deadline_s:.0f} s")
@@ -129,5 +131,7 @@ def run_cli(rank_fn: Callable, n_devices: int, device: str,
         raise ValueError(f"requested {n_devices} devices, only "
                          f"{avail} available")
     log.info("training on %d ranks (%s)", n, device)
-    spawn(rank_fn, n, device=device, args=(list(argv),))
+    # a training run takes as long as it takes; a rank that raises still
+    # ends it at once
+    spawn(rank_fn, n, device=device, args=(list(argv),), deadline_s=None)
     return 0

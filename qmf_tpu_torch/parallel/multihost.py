@@ -26,8 +26,17 @@ import torch.distributed as dist
 from qmf_tpu_torch.parallel.mesh import local_rank, make_mesh, rank_device
 from qmf_tpu_torch.utils.logging import log
 
-# How long a collective or the rendezvous waits for the other ranks.
+# How long the rendezvous waits for every rank to join.
 GROUP_TIMEOUT_S = 60
+# How long a collective waits for the other ranks. Rank 0 alone writes
+# checkpoints and factor files and evaluates, while the others wait in their
+# next collective (the worker's final barrier, the next epoch's first
+# all_gather; under NCCL the watchdog holds a barrier to this too), so the
+# bound is sized for that I/O (7.7 s at ml20m, k = 64), not for finding a
+# failed rank; qmf_tpu's sync_global_devices has no bound at all. A rank
+# that dies is found by what started the ranks (launch.spawn, torchrun, the
+# scheduler's failure detection).
+COLLECTIVE_TIMEOUT_S = 1800
 
 
 def initialize(
@@ -36,7 +45,6 @@ def initialize(
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
     device: Optional[str | torch.device] = None,
-    timeout_s: float = GROUP_TIMEOUT_S,
 ) -> None:
     """Join the process group (nothing to do with no coordinator).
 
@@ -45,7 +53,9 @@ def initialize(
     environment. ``device`` (default "cuda") is this rank's device, a bare
     "cuda" the card of its LOCAL_RANK; ``backend`` defaults to NCCL for a
     CUDA device and gloo for the CPU. The card is made current before the
-    group starts: NCCL ranks left on device 0 together hang.
+    group starts: NCCL ranks left on device 0 together hang. The rendezvous
+    waits GROUP_TIMEOUT_S for the other ranks, each collective
+    COLLECTIVE_TIMEOUT_S.
     """
     if coordinator is None and "MASTER_ADDR" in os.environ:
         coordinator = (f"{os.environ['MASTER_ADDR']}:"
@@ -61,9 +71,14 @@ def initialize(
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator}", world_size=num,
-        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    # init_process_group's own rendezvous, with a timeout of its own
+    store, _, _ = next(dist.rendezvous(
+        f"tcp://{coordinator}", rank, num,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S)))
+    collective = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+    store.set_timeout(collective)
+    dist.init_process_group(backend, store=store, world_size=num, rank=rank,
+                            timeout=collective)
     log.info("multihost: joined as rank %d/%d (coordinator %s, %s, %s)",
              rank, num, coordinator, backend, dev)
 

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-import numpy as np
 import torch
 
 from qmf_tpu_torch.ops import als_ops
@@ -61,16 +60,17 @@ class ShardedBuckets:
         dev = mesh.device
         sink = pad_rows(n_rows, mesh)
         self.row_ids, self.col_idx, self.values, self.mask = [], [], [], []
+        # a bucket's arrays are numpy (the host pack, cut here before the
+        # copy) or tensors on the device (the device pack, world 1)
         for b in buckets:
             lo, hi = mesh.block_bounds(b.row_ids.shape[0])
-            rows = b.row_ids.astype(np.int64)
-            self.row_ids.append(torch.from_numpy(
-                np.where(rows >= n_rows, sink, rows)).to(dev))
-            self.col_idx.append(torch.from_numpy(
-                b.col_idx[lo:hi].astype(np.int64)).to(dev))
-            self.values.append(torch.from_numpy(b.values[lo:hi]).to(
+            rows = torch.as_tensor(b.row_ids).to(dev, torch.int64)
+            self.row_ids.append(torch.where(rows >= n_rows, sink, rows))
+            self.col_idx.append(torch.as_tensor(b.col_idx[lo:hi]).to(
+                dev, torch.int64))
+            self.values.append(torch.as_tensor(b.values[lo:hi]).to(
                 dev, dtype))
-            self.mask.append(torch.from_numpy(b.mask[lo:hi]).to(dev))
+            self.mask.append(torch.as_tensor(b.mask[lo:hi]).to(dev))
 
     def arrays(self) -> List[Tuple[torch.Tensor, ...]]:
         return list(zip(self.row_ids, self.col_idx, self.values, self.mask))

@@ -146,6 +146,10 @@ def _jobs(data, tmp, world):
             for name, hot in WALS_RUNS.items()]
     jobs.append({"engine": "wals", "train": p["wals"],
                  "out": str(tmp / "fused"), "config": FUSED})
+    # device_pack forced: the ranks still pack on the host
+    jobs.append({"engine": "wals", "train": p["wals"],
+                 "out": str(tmp / "wals_dp"),
+                 "config": {**WALS, "dtype": "float64", "device_pack": True}})
     jobs += [{"engine": "bpr", "train": p["bpr"], "out": str(tmp / name),
               "config": {**BPR, **kw}} for name, kw in BPR_RUNS.items()]
     if world == 2:
@@ -278,6 +282,17 @@ def test_iterate_side_sharded_in_a_world_of_one_is_the_half_epoch(data):
         single.nusers, cfg.confidence_weight, cfg.regularization_lambda,
         "cholesky", "highest")
     assert torch.equal(got, want) and torch.equal(loss, want_loss)
+
+
+def test_sharded_wals_keeps_the_host_pack_across_ranks(sharded):
+    """A world of several ranks packs on the host even with device_pack
+    forced (qmf_tpu's multi-process engine does the same), and trains as
+    the run that left it at "auto", to the bit."""
+    _, _, res = sharded
+    assert str(res["wals_dp"]["pack_kind"]) == "host-packed"
+    assert str(res["wals"]["pack_kind"]) == "host-packed"
+    for key in ("user_factors", "item_factors", "losses"):
+        np.testing.assert_array_equal(res["wals_dp"][key], res["wals"][key])
 
 
 @pytest.mark.parametrize("name", list(WALS_RUNS))
