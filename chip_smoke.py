@@ -117,8 +117,33 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    float64 task again with the labor's epochs stretched and its worker
    killed after its first epoch: two attempts, the second resumed from the
    checkpoint, within 1e-9 of one device; (d) one ml100k epoch under
-   utils.tracing.trace: the trace holds wals_epoch_1 and every chol_solve
-   kernel of the epoch inside it. Then the launches of each kernel there.
+   utils.tracing.trace (epochs dispatched one by one, fuse_epoch=False):
+   the trace holds wals_epoch_1 and every chol_solve kernel of the epoch
+   inside it. Then the launches of each kernel there.
+12. one-program epochs as CUDA graphs (fuse_epoch, ops/graphs.py), run
+   where their inputs are alive: (a) after phase 8, on phases 4 and 6's
+   engines (phase 4's packed data, not read or packed again), the split
+   path and fused+hot, 3 epochs each from their trained factors eagerly
+   (fuse_epoch=False), one replay an epoch (checkpointing on) and as a
+   whole run: factors and losses torch.equal to eager, launches an epoch
+   by kernel equal to eager's (24 chol_solve.cu a split epoch), one replay
+   and one eager epoch under torch.profiler (each of the port's kernels'
+   events in the replay against what the launch counters add at it, and
+   against the eager epoch's: every counted launch is a node), capture
+   and instantiation seconds, epoch seconds, peak memory, then CUDA
+   events around eager epochs and around replays (the replay's device ms
+   is the epoch's busy time; the idle share is 1 - busy / wall); (b) after
+   phase 9p: phase 9d's engine ran its SGD loop as a graph, a fresh engine
+   of its configuration runs the loop eagerly on the same keys: updates/s,
+   wall and event ms an epoch, the replay's event ms, a floor on the eager
+   epoch's idle share, peak memory, capture seconds, AUC within 1e-3 of
+   each other; then phase 9b's size in float64, three
+   epochs with a decaying rate, the graph within 1e-9 of the eager loop on
+   the card and on the CPU.
+
+Phases 3, 4, 6, 10a, 10d and 11a run with fuse_epoch=True (the default):
+on the card each epoch is a replay of a captured graph, and the launch
+counts include the replays (ops/graphs.py keeps the counters true).
 
 Then the run's seconds on a line of their own, a JSON line describing each
 kernel (times, launches, errors, and the bound: the larger of the bytes it
@@ -217,14 +242,28 @@ def _normwise_err(got, want) -> tuple[float, float]:
 
 
 def _recorder(engine, epochs: list):
-    """A WALSEngine progress_cb: appends (epoch, loss, seconds, (user,
-    item) factors on the host) to ``epochs``, so phase 10 can hold a
-    2-epoch run against epoch 2 of a longer one."""
+    """A WALSEngine progress_cb that appends (epoch, loss, seconds, (user,
+    item) factors on the host) to ``epochs`` for every epoch, in either
+    form of fuse_epoch: a whole run calls progress_cb once, at its end, so
+    the engine's _fused_run is wrapped to keep the run's per-epoch losses;
+    its epochs then share the run's seconds equally, and only the last
+    holds factors (None before)."""
+    run_losses = []
+    run = engine._fused_run
+
+    def fused_run(nepochs):
+        run_losses[:] = run(nepochs)
+        return run_losses
 
     def record(epoch, loss, dt):
-        epochs.append((epoch, loss, dt, (engine.user_factors.cpu(),
-                                         engine.item_factors.cpu())))
+        factors = (engine.user_factors.cpu(), engine.item_factors.cpu())
+        n = max(1, len(run_losses))
+        for e, x in enumerate(run_losses[:-1], epoch - n + 1):
+            epochs.append((e, x, dt / n, None))
+        epochs.append((epoch, loss, dt / n, factors))
+        run_losses.clear()
 
+    engine._fused_run = fused_run
     return record
 
 
@@ -711,6 +750,7 @@ def model_scale(data, t_data: float, device: str = "cuda",
           host_pack_s=_pack_s(host_stages), host_pack_init_stages={
               k: round(v, 3) for k, v in host_stages.items()},
           host_pack_classes_equal=True,
+          epoch_program=_program_kind(engine),
           epoch_s=[round(dt, 4) for _, _, dt, _ in epochs],
           losses=[f"{x:.10g}" for x in losses], test_auc=auc,
           classes=n_classes, launches=launches,
@@ -720,6 +760,19 @@ def model_scale(data, t_data: float, device: str = "cuda",
     return {"launches": launches, "max_abs_err": err, "engine": engine,
             "auc": auc, "epoch_s": [dt for _, _, dt, _ in epochs],
             "epochs": epochs}
+
+
+def _program_kind(engine) -> str:
+    """How a WALSEngine ran its epochs: a CUDA graph, eager ops as one
+    program (with the reasons), or dispatched one by one."""
+    from qmf_tpu_torch.ops import graphs
+
+    if not engine.config.fuse_epoch:
+        return "eager(fuse_epoch=False)"
+    if isinstance(engine._program, graphs.EpochGraph):
+        return (f"cuda_graph(capture_s={engine._program.capture_s:.4f},"
+                f"replays={engine._program.replays})")
+    return f"eager({'; '.join(engine._eager_reasons)})"
 
 
 def _stages(engine) -> dict:
@@ -1098,6 +1151,7 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
           cli_test_auc=cli_auc, users=engine.nusers, items=engine.nitems,
           k=K_MAIN, hot_width=HOT_WIDTH, init_s=round(t_init, 3),
           pack=engine._pack_kind, init_stages=_stages(engine),
+          epoch_program=_program_kind(engine),
           epoch_s=[round(dt, 4) for _, _, dt, _ in epochs],
           split_epoch_s=[round(dt, 4) for dt in split["epoch_s"]],
           losses=[f"{x:.10g}" for x in losses], test_auc=auc,
@@ -1114,7 +1168,7 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
     return {"launches": counts[1], "cli_launches": cli_launches,
             "cli_auc": cli_auc, "max_abs_err": err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "epochs": epochs}
+            "bound_by": bound_by, "epochs": epochs, "engine": engine}
 
 
 def profile_split_user(engine) -> None:
@@ -1804,8 +1858,9 @@ def bpr_scale(data, device: str = "cuda") -> dict:
           bitmap_bytes=engine._pos_bitmap.words.numel() * 4,
           peak_bytes=peak, resident_before_bytes=before,
           stream_check=stream)
-    return {"engine": engine, "epoch_s": epoch_s,
-            "updates_per_s": engine._n_real_triplets / epoch_s}
+    return {"engine": engine, "epoch_s": epoch_s, "timed_s": timed,
+            "real_triplets": engine._n_real_triplets,
+            "updates_per_s": engine._n_real_triplets / epoch_s, "auc": auc}
 
 
 def profile_bpr_epoch(engine, epoch_s: float,
@@ -1861,8 +1916,9 @@ def profile_bpr_epoch(engine, epoch_s: float,
 
 
 def _sharded_wals_w1(mesh, train, want: list, **kw) -> dict:
-    """One 2-epoch ShardedWALSEngine run on ``mesh`` against epochs 1-2 of
-    a single-device run from the same init (``want``: its recorder rows)."""
+    """One 3-epoch ShardedWALSEngine run on ``mesh`` against a single-device
+    run from the same init (``want``: its recorder rows): every epoch's
+    loss and the final factors."""
     import torch
 
     from qmf_tpu_torch import WALSConfig
@@ -1871,7 +1927,7 @@ def _sharded_wals_w1(mesh, train, want: list, **kw) -> dict:
 
     # phase 4's configuration (phase 6's with kw)
     cfg = WALSConfig(nfactors=K_MAIN, matmul_precision="default",
-                     batch_rows=8192, nepochs=2, **kw)
+                     batch_rows=8192, nepochs=3, **kw)
     engine = ShardedWALSEngine(cfg, mesh=mesh)
     t1 = time.time()
     engine.init(train)
@@ -1888,11 +1944,11 @@ def _sharded_wals_w1(mesh, train, want: list, **kw) -> dict:
     moved = dict(mesh.counts)
     half = _half_epoch_ms({"mesh": (engine, engine._solver, engine.mesh),
                            "no_mesh": (engine, engine._solver, None)})
-    u_want, v_want = want[1][3]
+    u_want, v_want = want[-1][3]
     u_got = engine.user_factors[: engine.nusers].cpu()
     v_got = engine.item_factors[: engine.nitems].cpu()
     bitwise = (torch.equal(u_got, u_want) and torch.equal(v_got, v_want)
-               and [e[1] for e in epochs] == [e[1] for e in want[:2]])
+               and [e[1] for e in epochs] == [e[1] for e in want])
     err = max(_normwise_err(u_got, u_want)[1],
               _normwise_err(v_got, v_want)[1])
     if not err <= 5 * F32_TOL:
@@ -1900,8 +1956,9 @@ def _sharded_wals_w1(mesh, train, want: list, **kw) -> dict:
                              f"normwise factor error {err}")
     return {"init_s": round(t_init, 3), "pack": engine._pack_kind,
             "init_stages": _stages(engine),
+            "epoch_program": _program_kind(engine),
             "epoch_s": [round(e[2], 4) for e in epochs],
-            "single_epoch_s": [round(e[2], 4) for e in want[:2]],
+            "single_epoch_s": [round(e[2], 4) for e in want],
             "losses": [f"{e[1]:.10g}" for e in epochs],
             "bitwise_equal_to_single": bitwise, "normwise_err": err,
             "launches": launches,
@@ -1946,8 +2003,7 @@ def sharded(data, split: dict, fused: dict, bpr: dict, cli_files: dict,
     """Phase 10: the sharded engines (qmf_tpu_torch/parallel).
 
     10a: ShardedWALSEngine over NCCL at world 1 on phase 4's data, split
-    path and fused+hot, 2 epochs each, against epochs 1-2 of phases 4 and
-    6. 10b: two gloo ranks sharing the card, reading files the parent
+    path and fused+hot, 3 epochs each, against phases 4 and 6. 10b: two gloo ranks sharing the card, reading files the parent
     wrote: WALS at ml20m (phase 4's configuration, 3 epochs, AUC and
     factors against phase 4's), WALS at phase 3's ml100k in float64 against
     the single-device engine within 1e-9, BPR at phase 9b's small size in
@@ -2555,7 +2611,9 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
 
     # 11d: one ml100k epoch on the card under trace()
     t0 = time.time()
-    engine = WALSEngine(WALSConfig(nepochs=1), device=device)
+    # epochs dispatched one by one: the trace's span is wals_epoch_1
+    engine = WALSEngine(WALSConfig(nepochs=1, fuse_epoch=False),
+                        device=device)
     engine.init(read_dataset(cli_files["train.txt"]))
     trace_dir = os.path.join(tmp, "trace")
     spd_solve.launches = 0
@@ -2588,6 +2646,355 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
     return launches
 
 
+def _event_ms(fn) -> tuple:
+    """(host ms, CUDA-event ms) of one call of ``fn``, which ends in a wait
+    for the device or is followed by one here."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return 1e3 * (time.time() - t0), start.elapsed_time(end)
+
+
+# The port's CUDA kernels by their __global__ names (csrc/*.cu), as the
+# profiler names their events. A build_solve.cu call issues one of
+# build_solve_kernel (one block a row) or reduce_solve_kernel (the stream
+# split over blocks, after build_partial_kernel and sum_partials_kernel),
+# and hot_gemm_kernel first with the hot head.
+PORT_KERNELS = ("chol_solve_kernel", "build_solve_kernel",
+                "build_partial_kernel", "sum_partials_kernel",
+                "reduce_solve_kernel", "hot_gemm_kernel", "gather_vec_kernel",
+                "gather_warp_kernel", "gather_tile_kernel")
+
+
+def _profiled_kernels(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler: (the events of each of
+    PORT_KERNELS, every kernel event), and the change of each registered
+    launch counter (kernels.read_counters) over the call."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qmf_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    before = kernels.read_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    delta = {name: a - b for name, a, b in zip(
+        kernels.counter_names(), kernels.read_counters(), before)}
+    seen = dict.fromkeys(PORT_KERNELS, 0)
+    total = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or "memcpy" in e.key.lower() \
+                or "memset" in e.key.lower():
+            continue
+        total += e.count
+        for name in PORT_KERNELS:
+            if re.search(rf"\b{name}\b", e.key):
+                seen[name] += e.count
+    return seen, total, delta
+
+
+def _launches_are_nodes(name: str, seen: dict, delta: dict) -> None:
+    """Phase 12a: the port's kernel events one replay of a graph shows
+    against what the counters add at that replay. CUPTI may drop an event
+    (as 11d allows), so each event count may fall short of its counter by
+    one, never exceed it; and no counter ticks for a kernel the replay did
+    not run."""
+    solves = delta["build_solve.launches"] + delta["build_solve.launches_hot"]
+    pairs = {
+        "chol_solve_kernel": (seen["chol_solve_kernel"],
+                              delta["spd_solve.launches"]),
+        "build_solve_kernel+reduce_solve_kernel": (
+            seen["build_solve_kernel"] + seen["reduce_solve_kernel"], solves),
+        "hot_gemm_kernel": (seen["hot_gemm_kernel"],
+                            delta["build_solve.launches_hot"]),
+        "gather": (sum(seen[f"gather_{v}_kernel"]
+                       for v in ("vec", "warp", "tile")),
+                   sum(n for c, n in delta.items()
+                       if c.startswith("gather."))),
+    }
+    bad = {k: v for k, v in pairs.items() if not v[1] - 1 <= v[0] <= v[1]}
+    if bad or sum(delta.values()) == 0 or \
+            seen["build_partial_kernel"] > seen["reduce_solve_kernel"] + 1:
+        raise AssertionError(f"12a {name}: a replay's kernel events vs its "
+                             f"counters' ticks {pairs}, events {seen}")
+
+
+def _wals_mode(engine, mode: str, nepochs: int, start) -> dict:
+    """Phase 12a, one mode of one engine: ``nepochs`` epochs from the
+    factors ``start``, dispatched eagerly ("eager", fuse_epoch=False), one
+    program an epoch ("per_epoch", checkpointing on) or the whole run as
+    one ("whole_run"), each graph mode from a fresh capture."""
+    import torch
+
+    from qmf_tpu_torch.ops import build_solve, graphs, spd_solve
+
+    cfg = engine.config
+    engine.load_factors(*start)
+    cfg.fuse_epoch = mode != "eager"
+    engine._program = None
+    epochs = []
+    engine.progress_cb = _recorder(engine, epochs)
+    with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as ckpt:
+        engine._ckpt_dir = ckpt if mode == "per_epoch" else None
+        spd_solve.launches = build_solve.launches = 0
+        build_solve.launches_hot = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine.optimize()
+        engine._ckpt_dir = None
+    del engine._fused_run  # the recorder's wrapper
+    program = engine._program
+    graphed = isinstance(program, graphs.EpochGraph)
+    if (mode == "eager") == graphed or len(epochs) != nepochs:
+        raise AssertionError(f"12a {mode}: program {program!r}, "
+                             f"{len(epochs)} epochs")
+    return {
+        "u": engine.user_factors.clone(), "v": engine.item_factors.clone(),
+        "losses": [e[1] for e in epochs],
+        "launches_per_epoch": {
+            "chol_solve": spd_solve.launches / nepochs,
+            "build_solve": build_solve.launches / nepochs,
+            "build_solve_hot": build_solve.launches_hot / nepochs},
+        "epoch_s": [round(e[2], 4) for e in epochs],
+        "capture_s": round(program.capture_s, 4) if graphed else None,
+        "instantiate_s": (round(program.instantiate_s, 4) if graphed
+                          else None),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "auc": engine.metrics_engine.last("test_avg_auc")[1],
+    }
+
+
+def graph_epochs(engines: dict, nepochs: int = 3) -> None:
+    """Phase 12a: the WALS epoch as a CUDA graph (fuse_epoch, ops/graphs.py)
+    on phase 4's packed data, for each engine of ``engines`` (name ->
+    phase 4's split engine, phase 6's fused+hot one): ``nepochs`` epochs
+    from its trained factors eagerly, one replay an epoch and as a whole
+    run. Both graph modes must equal the eager run bit for bit (factors and
+    losses: the kernels and the library calls on the path are
+    deterministic) and count its launches an epoch. Then CUDA events
+    around an eager epoch and around a replay: the replay runs the epoch's
+    kernels back to back, so its device ms is the epoch's busy time, and
+    the idle share of an epoch is 1 - busy / wall."""
+    import statistics
+
+    import torch
+
+    for name, engine in engines.items():
+        t0 = time.time()
+        cfg = engine.config
+        cfg_keep = (cfg.nepochs, cfg.fuse_epoch, engine.progress_cb)
+        cfg.nepochs = nepochs
+        start = (engine.user_factors[: engine.nusers].clone(),
+                 engine.item_factors[: engine.nitems].clone())
+        runs = {mode: _wals_mode(engine, mode, nepochs, start)
+                for mode in ("eager", "per_epoch", "whole_run")}
+        eager = runs["eager"]
+        equal = {}
+        for mode in ("per_epoch", "whole_run"):
+            run = runs[mode]
+            equal[mode] = (torch.equal(run["u"], eager["u"])
+                           and torch.equal(run["v"], eager["v"])
+                           and run["losses"] == eager["losses"])
+            if not equal[mode] or (run["launches_per_epoch"]
+                                   != eager["launches_per_epoch"]):
+                raise AssertionError(
+                    f"12a {name} {mode}: equal to eager {equal[mode]}, "
+                    f"launches an epoch {run['launches_per_epoch']} vs "
+                    f"{eager['launches_per_epoch']}, losses "
+                    f"{run['losses']} vs {eager['losses']}")
+        if name == "split" and eager["launches_per_epoch"]["chol_solve"] != \
+                len(engine._user_classes) + len(engine._item_classes):
+            raise AssertionError(f"12a split: launches an epoch "
+                                 f"{eager['launches_per_epoch']}")
+        # device ms: the whole run's graph, replayed from the trained
+        # factors, beside eager epochs from the same factors
+        cfg.fuse_epoch = False
+        graph = engine._program
+        eager_ms = [_event_ms(engine._epoch) for _ in range(3)]
+        replay_ms = [_event_ms(lambda: graph.replay(engine.item_factors))
+                     for _ in range(3)]
+        # every launch the counters add at a replay is a node of the graph:
+        # one replay and one eager epoch under the profiler
+        r_seen, r_total, r_delta = _profiled_kernels(
+            lambda: graph.replay(engine.item_factors))
+        _launches_are_nodes(name, r_seen, r_delta)
+        e_seen, e_total, _ = _profiled_kernels(engine._epoch)
+        if any(abs(r_seen[n] - e_seen[n]) > 1 for n in PORT_KERNELS):
+            raise AssertionError(f"12a {name}: a replay's kernel events "
+                                 f"{r_seen}, an eager epoch's {e_seen}")
+        e_wall = statistics.median(w for w, _ in eager_ms)
+        e_dev = statistics.median(d for _, d in eager_ms)
+        r_wall = statistics.median(w for w, _ in replay_ms)
+        busy = statistics.median(d for _, d in replay_ms)
+        cfg.nepochs, cfg.fuse_epoch, engine.progress_cb = cfg_keep
+        _line(f"12a graph {name}", t0, nepochs=nepochs,
+              equal_to_eager=equal, test_auc={m: r["auc"]
+                                               for m, r in runs.items()},
+              launches_per_epoch=eager["launches_per_epoch"],
+              replay_counter_ticks={c: n for c, n in r_delta.items() if n},
+              replay_kernel_events={n: c for n, c in r_seen.items() if c},
+              eager_kernel_events={n: c for n, c in e_seen.items() if c},
+              replay_all_kernel_events=r_total,
+              eager_all_kernel_events=e_total,
+              **{f"{m}_{key}": r[key] for m, r in runs.items()
+                 for key in ("epoch_s", "capture_s", "instantiate_s",
+                             "peak_bytes")},
+              eager_epoch_wall_ms=round(e_wall, 3),
+              eager_epoch_event_ms=round(e_dev, 3),
+              replay_wall_ms=round(r_wall, 3),
+              replay_event_ms=round(busy, 3),
+              eager_idle_share=round(1 - busy / e_wall, 4),
+              graph_idle_share=round(1 - busy / r_wall, 4))
+
+
+def _bpr_f64_graph(device: str) -> dict:
+    """Phase 12b at phase 9b's size in float64: three grouped epochs on
+    the same keys, the rate decaying, through the SGD loop eagerly on the
+    card and on the CPU and as a CUDA graph on the card; max |difference|
+    of the graph's parameters from each."""
+    import numpy as np
+    import torch
+
+    from qmf_tpu_torch.ops import bpr_ops, graphs
+
+    n_users, n_items, n_pos, bs, k, n_rounds = 300, 500, 1 << 13, 256, 8, 4
+    u, i = _bpr_positives(n_pos, n_users, n_items, SEED + 1, zipf=False)
+    pos_up = torch.from_numpy(np.stack([u, i], axis=1))
+    rng = np.random.default_rng(SEED)
+    init = [rng.normal(0, 0.1, s) for s in ((n_users, k), (n_items, k),
+                                            (n_items,))]
+    gen = torch.Generator().manual_seed(SEED + 2)
+    keys = [bpr_ops.draw_grouped_keys(gen, n_rounds, True) for _ in range(3)]
+    out = {}
+    for run, d in (("graph", device), ("eager", device), ("cpu", "cpu")):
+        member = bpr_ops.make_pos_bitmap(u, i, n_users, n_items, device=d)
+        args = (member, 0.025, 0.0025, 1.0, True, bs, BPR_NEG, n_items,
+                n_rounds, "seq", "word")
+        sgd = bpr_ops.grouped_sgd(*args)
+        if run == "graph":
+            sgd = graphs.EpochGraph(sgd)
+        params = bpr_ops.BPRParams(*(
+            torch.tensor(a, dtype=torch.float64, device=d) for a in init))
+        for e, (rk, ks) in enumerate(keys):
+            params, _ = bpr_ops.sgd_epoch_grouped_keyed(
+                params, rk.to(d), ks.to(d), pos_up.to(d), member,
+                torch.tensor(0.05 * 0.9 ** e, dtype=torch.float64, device=d),
+                0.025, 0.0025, 1.0, n_items=n_items, n_real=n_pos - 100,
+                use_biases=True, num_neg=BPR_NEG, neg_rounds=n_rounds,
+                batch_size=bs, collide_cap=n_pos, item_scatter="seq",
+                sampler="word", sgd=sgd)
+        out[run] = [t.cpu() for t in params]
+        if run == "graph" and sgd.replays != len(keys) - 1:
+            raise AssertionError(f"12b f64: {sgd.replays} replays")
+    diff = {other: max(float((a - b).abs().max())
+                       for a, b in zip(out["graph"], out[other]))
+            for other in ("eager", "cpu")}
+    if not max(diff.values()) <= BPR_F64_TOL:
+        raise AssertionError(f"12b f64: graph vs {diff} beyond "
+                             f"{BPR_F64_TOL}")
+    return diff
+
+
+def bpr_graphs(data, bpr: dict, device: str = "cuda") -> None:
+    """Phase 12b: BPR's SGD loop as a CUDA graph. Phase 9d's engine ran its
+    loop as a graph (the default on a card); a fresh engine of 9d's
+    configuration runs it eagerly on the same keys: updates/s, wall ms and
+    CUDA-event ms an epoch, a floor on the eager epoch's idle share, peak
+    memory over two epochs of each, capture seconds, test AUC within 1e-3;
+    then phase 9b's size in float64, the graph within 1e-9 of the eager
+    loop on the card and on the CPU."""
+    import statistics
+
+    import torch
+
+    from qmf_tpu_torch import BPRConfig, MetricsConfig
+    from qmf_tpu_torch.metrics import MetricsEngine
+    from qmf_tpu_torch.models import BPREngine
+    from qmf_tpu_torch.ops import graphs
+
+    t0 = time.time()
+    train, test = data
+    graph_engine = bpr.pop("engine")
+    program = graph_engine._sgd_program
+    if not isinstance(program, graphs.EpochGraph):
+        raise AssertionError(f"9d's SGD loop was not a graph: {program!r}")
+    me = MetricsEngine(MetricsConfig(num_test_users=3000, seed=SEED))
+    me.add_test_avg_metric("auc")
+    cfg = BPRConfig(nepochs=BPR_WARM + BPR_TIMED, nfactors=BPR_K,
+                    num_negative_samples=BPR_NEG, batch_size=BPR_BATCH,
+                    init_seed=0)
+    engine = BPREngine(cfg, me, device=device)
+    engine.init(train)
+    engine.init_test(test)
+    engine._sgd_program = engine._grouped_sgd_body()  # eager on the card
+    epochs = []
+    engine.progress_cb = lambda *row: epochs.append(row)
+    engine.optimize()
+    timed = [dt for _, _, _, dt in epochs[BPR_WARM:]]
+    epoch_s = statistics.median(timed)
+    _, auc = me.last("test_avg_auc")
+    if not abs(auc - bpr["auc"]) <= 1e-3:
+        raise AssertionError(f"12b: graph AUC {bpr['auc']} vs eager {auc}")
+    # two epochs of each, both engines resident, with the peak memory of
+    # each pair; then the graph's replay alone (its SGD loop's device
+    # time: its kernels run back to back). The eager epoch runs the graph
+    # epoch's kernels, which take at most the graph epoch's event ms, so
+    # its idle share is at least 1 - that / its wall (9p profiles the
+    # graph's; a profile of the eager epoch's 54,000 launches takes
+    # longer than the rest of the phase)
+    peak = {}
+    for name, eng in (("eager", engine), ("graph", graph_engine)):
+        torch.cuda.reset_peak_memory_stats()
+        peak[name] = [_event_ms(eng._epoch) for _ in range(2)]
+        peak[name] = (peak[name], torch.cuda.max_memory_allocated())
+    (eager_ms, eager_peak), (graph_ms, graph_peak) = peak["eager"], \
+        peak["graph"]
+    replay_ms = [_event_ms(lambda: program.replay(*program.inputs))
+                 for _ in range(2)]
+    del engine, graph_engine
+    torch.cuda.empty_cache()
+    f64 = _bpr_f64_graph(device)
+    n = bpr["real_triplets"]
+    _line("12b graph bpr", t0, k=BPR_K, batch=BPR_BATCH,
+          graph_updates_per_s=round(bpr["updates_per_s"], 1),
+          eager_updates_per_s=round(n / epoch_s, 1),
+          graph_epoch_s=[round(x, 4) for x in bpr["timed_s"]],
+          eager_epoch_s=[round(x, 4) for x in timed],
+          graph_epoch_wall_ms=round(statistics.median(
+              w for w, _ in graph_ms), 3),
+          graph_epoch_event_ms=round(statistics.median(
+              d for _, d in graph_ms), 3),
+          eager_epoch_wall_ms=round(statistics.median(
+              w for w, _ in eager_ms), 3),
+          eager_epoch_event_ms=round(statistics.median(
+              d for _, d in eager_ms), 3),
+          sgd_replay_event_ms=round(statistics.median(
+              d for _, d in replay_ms), 3),
+          eager_idle_share_at_least=round(
+              1 - statistics.median(d for _, d in graph_ms)
+              / statistics.median(w for w, _ in eager_ms), 4),
+          capture_s=round(program.capture_s, 4),
+          record_s=round(program.record_s, 4),
+          instantiate_s=round(program.instantiate_s, 4),
+          graph_test_auc=bpr["auc"], eager_test_auc=auc,
+          graph_epochs_peak_bytes=graph_peak,
+          eager_epochs_peak_bytes=eager_peak,
+          f64_graph_max_abs_diff=f64, f64_tol=BPR_F64_TOL)
+
+
 def main() -> int:
     import torch
 
@@ -2604,14 +3011,17 @@ def main() -> int:
         fused_timing = fused_kernel_check(split_engine)
         torch.cuda.empty_cache()
         fused = fused_path(data, main_path, split_engine)
+        fused_engine = fused.pop("engine")
         gathers = gather_check(split_engine)
         serving(cli_files, data, split_engine)
-        del split_engine
+        graph_epochs({"split": split_engine, "fused_hot": fused_engine})
+        del split_engine, fused_engine
         torch.cuda.empty_cache()
         bpr_check()
         bpr_cli(cli_files)
         bpr = bpr_scale(data)
-        profile_bpr_epoch(bpr.pop("engine"), bpr["epoch_s"])
+        profile_bpr_epoch(bpr["engine"], bpr["epoch_s"])
+        bpr_graphs(data, bpr)
         torch.cuda.empty_cache()
         t0 = time.time()
         _line("10 sharded launches", t0,

@@ -9,8 +9,8 @@ default.
 and defaults).
 
 Every enum is validated when the config is built, so a typo fails before any
-data is read. ``qmf_tpu`` knobs that the port does not implement
-(``class_solve``, ``fuse_epoch``) are not fields here; see ROADMAP.md.
+data is read. ``class_solve``, the one ``qmf_tpu`` knob the port does not
+implement (its in-scan solve), is not a field here; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -72,6 +72,14 @@ class WALSConfig:
     # "default" rounds the gathered factors and weights to bf16 and
     # accumulates A and b in fp32.
     matmul_precision: str = "highest"
+    # Run each epoch as one device program (qmf_tpu/config.py:57-60), and
+    # the whole run as one when no epoch needs the host in between (no
+    # checkpoints, no always-compute metrics). On a CUDA device the epoch
+    # is captured once as a CUDA graph and replayed (ops/graphs.py), where
+    # the solver and the ranks' backend allow a capture; elsewhere it runs
+    # as eager ops, the run's losses kept on the device until its end.
+    # False dispatches every epoch eagerly and logs it as it ends.
+    fuse_epoch: bool = True
     # Degree-class padding grid (qmf_tpu/ops/packing.py pad_widths).
     width_grid: str = "pow2_15"
     # Seed of the item-factor init when distribution_file is empty.

@@ -55,6 +55,46 @@ MAX_SMEM_BYTES = 232448
 _lib = None  # the loaded library, once per process
 build_log = ""  # nvcc's output of the build this process ran (ptxas -v)
 
+# The wrappers' launch counters, which each wrapper's module registers when
+# it is imported: (namespace, name, key) reads ``namespace[name]``, or
+# ``namespace[name][key]`` for a dict of counts. A wrapper ticks its counter
+# in Python where it launches; a CUDA graph replays the launches without
+# passing through the wrapper, so ops/graphs.py reads and sets every
+# registered counter around a capture and a replay.
+_counters: list = []
+
+
+def register_counter(namespace: dict, name: str, key=None) -> None:
+    """Register ``namespace[name]`` (``namespace[name][key]`` with a key)
+    as a launch counter; ``namespace`` is the wrapper module's globals()."""
+    _counters.append((namespace, name, key))
+
+
+def counter_names() -> list[str]:
+    """The registered counters, as ``module.name`` or ``module.name[key]``."""
+    return [f"{ns['__name__'].rsplit('.', 1)[-1]}.{name}"
+            + ("" if key is None else f"[{key}]")
+            for ns, name, key in _counters]
+
+
+def read_counters() -> list[int]:
+    """The registered counters' values, in registration order."""
+    return [ns[name] if key is None else ns[name][key]
+            for ns, name, key in _counters]
+
+
+def write_counters(values) -> None:
+    """Set the registered counters to ``values`` (as read_counters)."""
+    values = list(values)
+    if len(values) != len(_counters):
+        raise ValueError(f"{len(values)} values for {len(_counters)} "
+                         f"registered counters")
+    for (ns, name, key), n in zip(_counters, values):
+        if key is None:
+            ns[name] = n
+        else:
+            ns[name][key] = n
+
 
 def nvcc_path() -> str | None:
     """The CUDA toolkit's nvcc, or None where there is no toolkit."""

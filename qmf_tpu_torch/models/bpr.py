@@ -17,6 +17,12 @@
   ``batch_size * num_negative_samples`` triplets; all updates in a batch read
   pre-batch parameters and scatter-add their gradients — the deterministic
   synchronous equivalent of Hogwild's unsynchronized concurrency.
+  A grouped epoch is two programs, as in qmf_tpu: the presample and pack,
+  eager (its compaction reads a count on the host), then the SGD loop over
+  every step, which on a CUDA device is captured as one CUDA graph at the
+  first epoch and replayed (ops/graphs.py), the decaying rate read from a
+  device scalar; gloo ranks and the CPU run the loop eagerly (decided once,
+  logged). The legacy triplet epochs run eagerly.
 - divergence guard: the reference CHECKs isfinite on every loss derivative
   (BPREngine.cpp:184-185); here factor finiteness is checked each epoch and
   raises with the same guidance.
@@ -45,7 +51,7 @@ from qmf_tpu_torch.config import BPRConfig
 from qmf_tpu_torch.data.dataset import Dataset
 from qmf_tpu_torch.data.id_index import MISSING_IDX, IdIndex
 from qmf_tpu_torch.models.engine import Engine
-from qmf_tpu_torch.ops import als_ops, bpr_ops
+from qmf_tpu_torch.ops import als_ops, bpr_ops, graphs
 from qmf_tpu_torch.ops.bpr_ops import BPRParams
 from qmf_tpu_torch.utils import checkpoint as ckpt
 from qmf_tpu_torch.utils.logging import log
@@ -100,6 +106,9 @@ class BPREngine(Engine):
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(config.init_seed)
         self._grouped = False
+        # the grouped epoch's SGD loop (bpr_ops.grouped_sgd), or a CUDA
+        # graph of it (graphs.EpochGraph): made at the first grouped epoch
+        self._sgd_program = None
         self._grp_up = None  # (n_stream, 2) interleaved [user, item] rows
         self._last_overflow = None
         # colliders beyond the presampler's buffer, summed over the epochs
@@ -435,6 +444,35 @@ class BPREngine(Engine):
             cfg.shuffle_training_set, min(cfg.batch_size, n),
             self._legacy_packed())
 
+    def _membership(self):
+        """The grouped sampler's membership structure: the exact bitmap,
+        else the Bloom filter."""
+        return (self._pos_bitmap if self._pos_bitmap is not None
+                else self._pos_bloom)
+
+    def _grouped_sgd_body(self):
+        """The grouped epoch's SGD loop as eager ops (bpr_ops.grouped_sgd)
+        for this engine's configuration."""
+        cfg = self.config
+        return bpr_ops.grouped_sgd(
+            self._membership(), cfg.user_lambda, cfg.item_lambda,
+            cfg.bias_lambda, cfg.use_biases, self._grp_batch,
+            cfg.num_negative_samples, self.nitems, cfg.neg_resample_rounds,
+            cfg.item_scatter, cfg.neg_sampler, self.mesh)
+
+    def _grouped_sgd(self):
+        """The grouped epoch's SGD loop, made at the first grouped epoch: a
+        CUDA graph captured at its first call (graphs.EpochGraph) where
+        nothing in ``graphs.eager_reasons`` stands against it (the device,
+        the mesh's backend), else the eager loop. Decided once an engine,
+        and logged. The presample before it stays eager: its compaction
+        reads a count on the host."""
+        if self._sgd_program is None:
+            self._sgd_program, _ = graphs.epoch_program(
+                "BPR SGD loop", self._grouped_sgd_body(), self.device,
+                self.mesh)
+        return self._sgd_program
+
     def _epoch(self) -> None:
         """One epoch: this epoch's draws, then shuffle + sample + all
         steps on them."""
@@ -442,6 +480,11 @@ class BPREngine(Engine):
         hyper = (self.learning_rate, cfg.user_lambda, cfg.item_lambda,
                  cfg.bias_lambda)
         if self._grouped:
+            # the rate as a tensor on the device: a captured loop reads it
+            # there each epoch (it decays between epochs)
+            lr = torch.full((), self.learning_rate, dtype=self.dtype,
+                            device=self.device)
+            hyper = (lr,) + hyper[1:]
             rk, ks = self._draw_grouped_keys()
             self.params, self._last_overflow = (
                 bpr_ops.sgd_epoch_grouped_keyed(
@@ -449,9 +492,7 @@ class BPREngine(Engine):
                     rk,
                     ks,
                     self._grp_up,
-                    self._pos_bitmap
-                    if self._pos_bitmap is not None
-                    else self._pos_bloom,
+                    self._membership(),
                     *hyper,
                     n_items=self.nitems,
                     n_real=self._n_real_pos,
@@ -465,6 +506,7 @@ class BPREngine(Engine):
                     item_scatter=cfg.item_scatter,
                     sampler=cfg.neg_sampler,
                     mesh=self.mesh,
+                    sgd=self._grouped_sgd(),
                 )
             )
             return

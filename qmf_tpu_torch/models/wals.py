@@ -12,7 +12,15 @@
   factors), each stage that touches the card ending in a synchronize.
 - ``optimize``: per epoch, solve users given items, then items given users;
   the logged train loss comes from the item half-epoch, normalized by
-  nusers*nitems (reference WALSEngine.cpp:82-96).
+  nusers*nitems (reference WALSEngine.cpp:82-96). With ``fuse_epoch`` (the
+  default) it takes qmf_tpu's routes (models/wals.py:413-502, 581-626): the
+  whole run as one program when no epoch needs the host in between
+  (``_can_fuse_run``: no checkpoints, no always-compute metrics), else one
+  program an epoch. On a CUDA device that program is the epoch captured as
+  a CUDA graph at the first epoch and replayed (ops/graphs.py), unless
+  ``graphs.eager_reasons`` names a reason to run it eagerly; the decision
+  is made once and logged. ``fuse_epoch=False`` dispatches each epoch
+  eagerly.
 - Each half-epoch is ops/als_ops.py ``_solve_side``: per width class a
   chunked build and one batched SPD solve, which on a CUDA device is the
   hand-written kernel (solver "kernel"); or, with solver "fused", one
@@ -40,7 +48,7 @@ from qmf_tpu_torch.data.dataset import Dataset
 from qmf_tpu_torch.data.factor_io import FactorData
 from qmf_tpu_torch.data.id_index import IdIndex
 from qmf_tpu_torch.models.engine import Engine
-from qmf_tpu_torch.ops import als_ops, device_pack
+from qmf_tpu_torch.ops import als_ops, device_pack, graphs
 from qmf_tpu_torch.ops import hot as hot_ops
 from qmf_tpu_torch.ops.packing import (
     chunks_for_classes,
@@ -94,6 +102,13 @@ class WALSEngine(Engine):
         self._pack_kind: Optional[str] = None  # "device-packed" / "host-packed"
         self._ckpt_dir: Optional[str] = None
         self._ckpt_every = 1
+        # the epoch as a function of the item factors (als_ops.epoch_body),
+        # made at its first use; and the epoch as one program (fuse_epoch):
+        # that function or a graphs.EpochGraph of it, with the reasons it
+        # runs eagerly
+        self._body = None
+        self._program = None
+        self._eager_reasons: List[str] = []
         self.test_users: Optional[np.ndarray] = None
         self.test_labels: Optional[np.ndarray] = None
         # optional per-epoch progress hook: fn(epoch, loss, wall_s)
@@ -379,17 +394,80 @@ class WALSEngine(Engine):
                 self.metrics_engine.config.seed,
             )
 
-    def _epoch(self) -> float:
-        """One full epoch (als_ops.train_epoch); returns the reference-
-        normalized item-side train loss."""
-        cfg = self.config
-        self.user_factors, self.item_factors, _, loss = als_ops.train_epoch(
-            self.user_factors, self.item_factors, self._user_classes,
-            self._item_classes, cfg.confidence_weight,
-            cfg.regularization_lambda, self._solver, cfg.matmul_precision,
-            self.nusers, self.nitems, self._user_chunks, self._item_chunks,
-            self._user_hot, self._item_hot, mesh=self.mesh,
+    def _epoch_body(self):
+        """The epoch on this engine's packed data as a function of the
+        item factors (als_ops.epoch_body), made at its first use."""
+        if self._body is None:
+            cfg = self.config
+            self._body = als_ops.epoch_body(
+                self._user_classes, self._item_classes,
+                cfg.confidence_weight, cfg.regularization_lambda,
+                self._solver, cfg.matmul_precision, self.nusers, self.nitems,
+                self._user_chunks, self._item_chunks, self._user_hot,
+                self._item_hot, mesh=self.mesh,
+            )
+        return self._body
+
+    def _epoch_program(self):
+        """The epoch as one program, made at its first use: a CUDA graph
+        of :meth:`_epoch_body` captured at its first call
+        (graphs.EpochGraph) where nothing in ``graphs.eager_reasons`` stands
+        against it (the device, the mesh's backend, the solver), else the
+        body itself. Decided once an engine, and logged."""
+        if self._program is None:
+            self._program, self._eager_reasons = graphs.epoch_program(
+                "WALS epoch program", self._epoch_body(), self.device,
+                self.mesh, self._solver)
+        return self._program
+
+    def _own(self, u: torch.Tensor, v: torch.Tensor) -> None:
+        """Install factors the epoch program returned: a graph's outputs
+        are its static buffers, which the next replay overwrites, so they
+        are copied out."""
+        if isinstance(self._program, graphs.EpochGraph):
+            u, v = u.clone(), v.clone()
+        self.user_factors, self.item_factors = u, v
+
+    def _fused_epoch(self) -> float:
+        """One epoch as one program (qmf_tpu's _fused_epoch); returns the
+        reference-normalized item-side train loss, its only host read."""
+        u, v, loss = self._epoch_program()(self.item_factors)
+        self._own(u, v)
+        return float(loss) / self.nusers / self.nitems
+
+    def _fused_run(self, nepochs: int) -> List[float]:
+        """The remaining ``nepochs`` epochs as one program
+        (als_ops.train_epochs; qmf_tpu's _fused_run): one host read, of the
+        per-epoch losses, at the end. Returns them reference-normalized."""
+        u, v, losses = als_ops.train_epochs(
+            self._epoch_program(), self.item_factors, nepochs)
+        self._own(u, v)
+        return [loss / self.nusers / self.nitems for loss in losses.tolist()]
+
+    def _can_fuse_run(self) -> bool:
+        """True when no epoch needs the host before the next one (qmf_tpu's
+        _can_fuse_run): fuse_epoch, no always-compute metrics, no
+        checkpointing."""
+        me = self.metrics_engine
+        per_epoch_eval = (
+            me is not None
+            and me.test_avg_metrics
+            and self.test_users is not None
+            and len(self.test_users)
+            and me.config.always_compute
         )
+        return bool(
+            self.config.fuse_epoch
+            and not per_epoch_eval
+            and not self._ckpt_dir
+        )
+
+    def _epoch(self) -> float:
+        """One full epoch dispatched eagerly (:meth:`_epoch_body`,
+        fuse_epoch=False); returns the reference-normalized item-side train
+        loss."""
+        self.user_factors, self.item_factors, loss = self._epoch_body()(
+            self.item_factors)
         return float(loss) / self.nusers / self.nitems
 
     def enable_checkpointing(self, directory: str, every: int = 1) -> None:
@@ -459,10 +537,32 @@ class WALSEngine(Engine):
             raise RuntimeError(
                 "no factor data, have you initialized the engine?"
             )
-        for epoch in range(self._maybe_resume(), self.config.nepochs + 1):
+        start_epoch = self._maybe_resume()
+        nepochs = self.config.nepochs
+        if start_epoch <= nepochs and self._can_fuse_run():
+            # the whole run as one program; the per-epoch losses are logged
+            # afterwards in the per-epoch record format
+            t0 = time.time()
+            with annotate("wals_run"):
+                losses = self._fused_run(nepochs - start_epoch + 1)
+            elapsed = time.time() - t0
+            for i, loss in enumerate(losses):
+                log.info("epoch %d: train loss = %.10g (%.3fs)",
+                         start_epoch + i, loss, elapsed / len(losses))
+            self._check_finite(losses[-1], nepochs)
+            if self.progress_cb is not None:
+                self.progress_cb(nepochs, losses[-1], elapsed)
+            self.evaluate(nepochs)
+            return
+        if start_epoch <= nepochs and not self.config.fuse_epoch:
+            log.info("WALS epochs dispatched eagerly, one at a time "
+                     "(fuse_epoch=False)")
+        for epoch in range(start_epoch, nepochs + 1):
             t0 = time.time()
             with annotate(f"wals_epoch_{epoch}"):
-                loss = self._epoch()  # float() waits for the device
+                # float() of the loss waits for the device
+                loss = (self._fused_epoch() if self.config.fuse_epoch
+                        else self._epoch())
             dt = time.time() - t0
             log.info(
                 "epoch %d: train loss = %.10g (%.3fs)", epoch, loss, dt

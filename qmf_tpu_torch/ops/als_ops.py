@@ -289,6 +289,46 @@ def train_epoch(user_factors, item_factors, user_arrays, item_arrays,
     return u_new, v_new, loss_u, loss_v
 
 
+def epoch_body(user_arrays, item_arrays, alpha, lam, solver: str,
+               precision: str, n_users: int, n_items: int, user_chunks,
+               item_chunks, user_hot=None, item_hot=None, mesh=None):
+    """:func:`train_epoch` on these classes as a function of the item
+    factors alone: ``epoch(item_factors) -> (u_new, v_new, loss_v)``. This
+    is the epoch an engine runs as one program, eagerly or captured as a
+    CUDA graph (ops/graphs.py EpochGraph): it reads no device value on the
+    host, so a capture holds all of it."""
+
+    def epoch(item_factors):
+        u_new, v_new, _, loss_v = train_epoch(
+            None, item_factors, user_arrays, item_arrays, alpha, lam, solver,
+            precision, n_users, n_items, user_chunks, item_chunks, user_hot,
+            item_hot, mesh,
+        )
+        return u_new, v_new, loss_v
+
+    return epoch
+
+
+def train_epochs(epoch, item_factors: torch.Tensor, nepochs: int):
+    """The whole run: ``nepochs`` epochs of ``epoch`` from ``item_factors``
+    (qmf_tpu's ``train_epochs``, als_ops.py:576-637, whose ``lax.scan`` over
+    the epochs is this loop). ``epoch`` is :func:`epoch_body`'s function,
+    or an ops/graphs.py EpochGraph of it on a CUDA device, which runs its
+    first call as the warm-up and replays the captured epoch at every later
+    one. Returns (u_final, v_final, losses (nepochs,)): the item-side loss
+    of each epoch, as the reference logs it (WALSEngine.cpp:82-96), left on
+    the device. Nothing here reads the device."""
+    if nepochs < 1:
+        raise ValueError(f"train_epochs needs nepochs >= 1, got {nepochs}")
+    losses = torch.empty((nepochs,), dtype=item_factors.dtype,
+                         device=item_factors.device)
+    v = item_factors
+    for e in range(nepochs):
+        u, v, loss = epoch(v)
+        losses[e] = loss
+    return u, v, losses
+
+
 def compute_scores(user_factors: torch.Tensor, item_factors: torch.Tensor,
                    item_biases: torch.Tensor | None = None,
                    user_idx: torch.Tensor | None = None) -> torch.Tensor:

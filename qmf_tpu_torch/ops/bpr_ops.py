@@ -1040,7 +1040,7 @@ def _sgd_epoch_scan_grouped_body(
     u_enc: torch.Tensor,  # (S*B,) int32: user + per-slot round bits + valid
     pos: torch.Tensor,  # (S*B,) int32 positive items
     rk: torch.Tensor,  # (R, 3) int32 round keys (shared with presampling)
-    lr: float,
+    lr,  # float, or a 0-d tensor of the factors' dtype on their device
     user_lambda: float,
     item_lambda: float,
     bias_lambda: float,
@@ -1054,6 +1054,7 @@ def _sgd_epoch_scan_grouped_body(
     sampler: str = "rounds",
     wpu: int = 0,
     mesh=None,
+    tables=None,
 ) -> BPRParams:
     """Grouped-epoch pass 2: minibatch SGD, one row per POSITIVE, in place.
 
@@ -1075,6 +1076,15 @@ def _sgd_epoch_scan_grouped_body(
     With ``mesh`` (parallel/mesh.py) each rank computes the gradients of its
     lanes of every step only, and :func:`_whole_batch` hands every rank the
     whole step's, which each applies as without a mesh.
+
+    ``lr`` enters as a 0-d tensor on the device, folded into each lane's
+    valid weight ``w``, which every gradient term carries (qmf_tpu's
+    ``at[].add(lr * d)`` with the product taken first), so a CUDA graph of
+    this loop (ops/graphs.py) reads the epoch's rate from that tensor
+    rather than keeping the one it was captured with, at one (B,) multiply
+    a step. ``tables`` are :func:`_slot_tables` for this configuration,
+    made here if None: a graph takes them made beforehand, since their
+    host-to-device copy cannot be captured.
     """
     s = u_enc.shape[0] // batch_size
     dev = u_enc.device
@@ -1083,12 +1093,16 @@ def _sgd_epoch_scan_grouped_body(
     lo, hi = _lanes(batch_size, mesh)
     lane = torch.arange(lo, hi, dtype=torch.int32, device=dev)
     use_word = sampler == "word"
-    tables = _slot_tables(num_neg, n_rounds, use_word, dev)
+    if tables is None:
+        tables = _slot_tables(num_neg, n_rounds, use_word, dev)
     uf, itf, ib = params
+    lr = torch.as_tensor(lr, dtype=uf.dtype, device=dev)
 
     for t in range(s):
         ue, p = ue_steps[t, lo:hi], p_steps[t, lo:hi]
-        w = (ue & 1).to(uf.dtype)
+        # the valid bit times the rate: every gradient term carries w, so
+        # the updates come out already scaled by the rate
+        w = (ue & 1).to(uf.dtype) * lr
         u = _shift_right_logical(ue, u_shift)
         wcol = w[:, None]
         negs, _ = _decode_negatives(
@@ -1118,35 +1132,29 @@ def _sgd_epoch_scan_grouped_body(
         u, p, negs, du, dp, dn, dbp, dbn = _whole_batch(
             (u, p, negs, du, dp, dn, dbp, dbn), batch_size, mesh)
 
-        uf.index_add_(0, u, du, alpha=lr)
+        uf.index_add_(0, u, du)
         if item_scatter in ("merged", "dense"):
             # slot-major, as qmf_tpu concatenates: p, negatives of slot 0, ...
             all_idx = torch.cat([p, negs.T.reshape(-1)])
             all_upd = torch.cat([dp, dn.transpose(0, 1).reshape(-1, dn.shape[2])])
             if item_scatter == "dense":
-                itf.add_(
-                    torch.zeros_like(itf).index_add_(0, all_idx, all_upd),
-                    alpha=lr,
-                )
+                itf.add_(torch.zeros_like(itf).index_add_(0, all_idx, all_upd))
             else:
-                itf.index_add_(0, all_idx, all_upd, alpha=lr)
+                itf.index_add_(0, all_idx, all_upd)
             if use_biases:
                 bupd = torch.cat([dbp, dbn.T.reshape(-1)])
                 if item_scatter == "dense":
-                    ib.add_(
-                        torch.zeros_like(ib).index_add_(0, all_idx, bupd),
-                        alpha=lr,
-                    )
+                    ib.add_(torch.zeros_like(ib).index_add_(0, all_idx, bupd))
                 else:
-                    ib.index_add_(0, all_idx, bupd, alpha=lr)
+                    ib.index_add_(0, all_idx, bupd)
         else:
-            itf.index_add_(0, p, dp, alpha=lr)
+            itf.index_add_(0, p, dp)
             for j in range(num_neg):
-                itf.index_add_(0, negs[:, j], dn[:, j], alpha=lr)
+                itf.index_add_(0, negs[:, j], dn[:, j])
             if use_biases:
-                ib.index_add_(0, p, dbp, alpha=lr)
+                ib.index_add_(0, p, dbp)
                 for j in range(num_neg):
-                    ib.index_add_(0, negs[:, j], dbn[:, j], alpha=lr)
+                    ib.index_add_(0, negs[:, j], dbn[:, j])
     return params
 
 
@@ -1202,7 +1210,7 @@ def sgd_epoch_grouped_keyed(
     ks: Optional[torch.Tensor],  # (6,) int32 Feistel keys, None = no shuffle
     pos_up: torch.Tensor,  # (n_stream, 2) int32 padded [user, item] pair rows
     bitmap,  # PosBitmap (exact) or PosBloom (needs pos_set for verify)
-    lr: float,
+    lr,  # float, or a 0-d tensor of the factors' dtype on their device
     user_lambda: float,
     item_lambda: float,
     bias_lambda: float,
@@ -1217,11 +1225,17 @@ def sgd_epoch_grouped_keyed(
     item_scatter: str = "seq",
     sampler: str = "rounds",
     mesh=None,
+    sgd=None,
 ):
     """One grouped training epoch on given keys: presample+encode, then the
     grouped SGD loop. With ``mesh`` every rank presamples the whole epoch
     (the collision buffer compacts over the whole stream, so a slice cannot
     be presampled alone) and steps its lanes (parallel/sharded_bpr.py).
+
+    ``sgd`` runs the SGD loop in place of the one made here: the function
+    of :func:`grouped_sgd` for this configuration, or an ops/graphs.py
+    EpochGraph of it (the loop captured as a CUDA graph); the presample
+    stays eager, since its compaction reads a count on the host.
 
     Returns (params, n_overflow) where n_overflow is a DEVICE scalar of
     collision-buffer overflows (callers should log when nonzero, reading it
@@ -1236,11 +1250,7 @@ def sgd_epoch_grouped_keyed(
     is_bloom = isinstance(bitmap, PosBloom)
     if is_bloom and pos_set is None:
         raise ValueError("bloom membership requires pos_set for exact verify")
-    use_word = (
-        sampler == "word"
-        and not is_bloom
-        and word_sampler_applies(num_neg, neg_rounds)
-    )
+    use_word = _uses_word(bitmap, sampler, num_neg, neg_rounds)
     enc, p, n_overflow = _sample_pack_grouped_body(
         rk,
         ks,
@@ -1260,27 +1270,51 @@ def sgd_epoch_grouped_keyed(
         csr_items=pos_set.items if is_bloom else None,
         max_degree=pos_set.max_degree if is_bloom else 0,
     )
-    new_params = _sgd_epoch_scan_grouped_body(
-        params,
-        enc,
-        p,
-        rk,
-        lr,
-        user_lambda,
-        item_lambda,
-        bias_lambda,
-        use_biases=use_biases,
-        batch_size=batch_size,
-        num_neg=num_neg,
-        n_items=n_items,
-        n_rounds=neg_rounds,
-        u_shift=u_shift,
-        item_scatter=item_scatter,
-        sampler="word" if use_word else "rounds",
-        wpu=bitmap.words_per_user if use_word else 0,
-        mesh=mesh,
-    )
+    if sgd is None:
+        sgd = grouped_sgd(bitmap, user_lambda, item_lambda, bias_lambda,
+                          use_biases, batch_size, num_neg, n_items,
+                          neg_rounds, item_scatter, sampler, mesh)
+    uf = params.user_factors
+    lr = torch.as_tensor(lr, dtype=uf.dtype, device=uf.device)
+    new_params = BPRParams(*sgd(enc, p, rk, lr, *params))
     return new_params, n_overflow
+
+
+def _uses_word(bitmap, sampler: str, num_neg: int, neg_rounds: int) -> bool:
+    """Whether the grouped epoch samples with the shared-word sampler: asked
+    for, on the exact bitmap, and applicable to these counts."""
+    return (sampler == "word" and not isinstance(bitmap, PosBloom)
+            and word_sampler_applies(num_neg, neg_rounds))
+
+
+def grouped_sgd(bitmap, user_lambda: float, item_lambda: float,
+                bias_lambda: float, use_biases: bool, batch_size: int,
+                num_neg: int, n_items: int, neg_rounds: int,
+                item_scatter: str = "seq", sampler: str = "rounds",
+                mesh=None):
+    """The grouped epoch's SGD loop (:func:`_sgd_epoch_scan_grouped_body`)
+    for one configuration, as a function of what changes from epoch to
+    epoch: ``sgd(enc, p, rk, lr, uf, itf, ib) -> (uf, itf, ib)``, the
+    packed stream, the round keys, the rate as a 0-d tensor and the
+    parameters, updated in place. Its arguments are
+    :func:`sgd_epoch_grouped_keyed`'s. The loop reads no device value on
+    the host, so a CUDA graph (ops/graphs.py) captures all of it."""
+    use_word = _uses_word(bitmap, sampler, num_neg, neg_rounds)
+    tables = _slot_tables(num_neg, neg_rounds, use_word, bitmap.words.device)
+
+    def sgd(enc, p, rk, lr, uf, itf, ib):
+        return tuple(_sgd_epoch_scan_grouped_body(
+            BPRParams(uf, itf, ib), enc, p, rk, lr, user_lambda,
+            item_lambda, bias_lambda, use_biases=use_biases,
+            batch_size=batch_size, num_neg=num_neg, n_items=n_items,
+            n_rounds=neg_rounds, u_shift=1 + 2 * num_neg,
+            item_scatter=item_scatter,
+            sampler="word" if use_word else "rounds",
+            wpu=bitmap.words_per_user if use_word else 0, mesh=mesh,
+            tables=tables,
+        ))
+
+    return sgd
 
 
 def sgd_epoch_grouped(

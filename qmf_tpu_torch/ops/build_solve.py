@@ -37,6 +37,8 @@ from qmf_tpu_torch.ops import spd_solve
 
 launches = 0  # the variant without the hot head
 launches_hot = 0  # the variant with it
+kernels.register_counter(globals(), "launches")
+kernels.register_counter(globals(), "launches_hot")
 
 _STREAM_DTYPES = (torch.bfloat16, torch.float32)
 # Splits: aim for this many blocks per SM; give each block of the D split

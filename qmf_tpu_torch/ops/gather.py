@@ -32,6 +32,8 @@ import torch
 from qmf_tpu_torch import kernels
 
 launches = {**dict.fromkeys(kernels.GATHER_VARIANTS, 0), "fill": 0}
+for _key in launches:
+    kernels.register_counter(globals(), "launches", _key)
 
 _TABLE_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 _WIDTHS = (16, 8, 4, 2)  # vector bytes, widest first

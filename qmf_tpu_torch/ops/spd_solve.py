@@ -22,6 +22,8 @@ from qmf_tpu_torch import kernels
 
 launches = 0
 launches_t = 0
+kernels.register_counter(globals(), "launches")
+kernels.register_counter(globals(), "launches_t")
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, layout: str) -> None:

@@ -86,6 +86,8 @@ def _run_wals(mesh: Mesh, job: dict) -> dict:
         "build_solve_hot_launches": build_solve.launches_hot,
         "solver": eng._solver,
         "pack_kind": eng._pack_kind,
+        # why the epoch program ran as eager ops (empty: a CUDA graph)
+        "eager_reasons": "; ".join(eng._eager_reasons),
     }
     # after optimize: the Gramian's collective is not in the counts above
     out.update({f"collective_{k}": v for k, v in mesh.counts.items()})

@@ -10,6 +10,13 @@ them) and the solved rows are exchanged by one all_gather per class. The
 factors end each half-epoch equal on every rank. In float64 the results
 are the single-device engine's to rounding.
 
+``fuse_epoch`` takes WALSEngine's routes (qmf_tpu/parallel/engine.py:169-199:
+the whole run as one program, or one program an epoch), the collectives
+inside the program. Over NCCL on a card the program is a CUDA graph; over
+gloo it runs as eager ops, since a graph cannot hold gloo's host-side
+collectives (ops/graphs.py ``eager_reasons``: decided before the first
+epoch and logged).
+
 Checkpoints hold the unpadded factors, so a run resumes on any number of
 ranks, a single-device engine's included, and the reverse. Only rank 0
 writes checkpoints, evaluates and saves factor files; every rank resumes

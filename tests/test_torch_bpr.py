@@ -124,7 +124,9 @@ def _assert_same_init(pe, je):
     dict(grouped_epoch=False),
     dict(use_biases=True, neg_sampler="rounds", item_scatter="merged"),
     dict(bitmap_budget_mb=0, item_scatter="dense", shuffle_training_set=False),
-], ids=["grouped", "legacy", "biases-rounds-merged", "bloom-dense-noshuffle"])
+    dict(item_scatter="dense", decay_rate=0.9),
+], ids=["grouped", "legacy", "biases-rounds-merged", "bloom-dense-noshuffle",
+        "dense-decay"])
 def test_engine_replays_qmf_tpu(kw):
     """Both engines, same data, same draws, 3 epochs in float64 with the
     learning-rate decay: factors and logged losses within 1e-9."""

@@ -192,9 +192,12 @@ def _train(engine, ds):
 def test_engine_device_pack_matches_qmf_tpu_and_host_pack(hot_width):
     ds = _dataset()
     cfg = dict(ENGINE, hot_width=hot_width)
-    dev = WALSEngine(WALSConfig(**cfg, device_pack=True), device="cpu")
+    # fuse_epoch=False: one progress_cb a epoch, as the JAX run below
+    dev = WALSEngine(WALSConfig(**cfg, device_pack=True, fuse_epoch=False),
+                     device="cpu")
     dev_losses = _train(dev, ds)
-    host = WALSEngine(WALSConfig(**cfg, device_pack=False), device="cpu")
+    host = WALSEngine(WALSConfig(**cfg, device_pack=False, fuse_epoch=False),
+                      device="cpu")
     host_losses = _train(host, ds)
     assert (dev._pack_kind, host._pack_kind) == ("device-packed",
                                                  "host-packed")

@@ -169,6 +169,8 @@ def _run(engine_cls, config_cls, ds, hot_width, nepochs=3, **kw):
                      init_distribution_bound=0.1, init_seed=7, batch_rows=32,
                      hot_width=hot_width, **kw)
     port = engine_cls is WALSEngine
+    if port:  # one progress_cb a epoch, as the JAX runs' fuse_epoch=False
+        cfg.fuse_epoch = False
     eng = engine_cls(cfg, device="cpu") if port else engine_cls(cfg)
     losses = []
     eng.progress_cb = lambda e, loss, dt: losses.append(loss)

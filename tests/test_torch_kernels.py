@@ -425,3 +425,138 @@ def test_launches_on_their_tensors_device_and_leave_the_current_one(cuda):
                                rtol=2e-4, atol=2e-4)
     _assert_rowwise_close(x, build_solve.build_solve_reference(*args)[0], 2e-4)
     assert torch.equal(rows, gather.gather_rows_plain(table, idx))
+
+
+@pytest.mark.parametrize("solver,hot_width", [("kernel", 0), ("fused", 8)])
+def test_replayed_wals_epoch_equals_eager(cuda, solver, hot_width):
+    """fuse_epoch's CUDA graph (ops/graphs.py): three epochs as a whole run,
+    the first the warm-up and two replays, equal three eager epochs bit for
+    bit (the kernels and the library calls on the path are
+    deterministic), and the launch counters after the replays count what
+    the eager epochs count. Factors replaced through load_factors feed the
+    captured epoch: a second run from the first one's start, all replays,
+    ends where the first did."""
+    import numpy as np
+
+    from qmf_tpu_torch.config import WALSConfig
+    from qmf_tpu_torch.data import Dataset
+    from qmf_tpu_torch.models import WALSEngine
+    from qmf_tpu_torch.ops import graphs
+
+    rng = np.random.default_rng(0)
+    key = np.unique(rng.integers(0, 200 * 120, 3000))
+    ds = Dataset(key // 120 + 1, key % 120 + 1,
+                 rng.integers(1, 11, len(key)) * 0.5)
+
+    def run(fuse_epoch):
+        eng = WALSEngine(WALSConfig(
+            nepochs=3, nfactors=32, batch_rows=64, solver=solver,
+            hot_width=hot_width, matmul_precision="default",
+            fuse_epoch=fuse_epoch), device=cuda)
+        eng.init(ds)
+        start[fuse_epoch] = (eng.user_factors.clone(),
+                             eng.item_factors.clone())
+        spd_solve.launches = build_solve.launches = 0
+        build_solve.launches_hot = 0
+        eng.optimize()
+        torch.cuda.synchronize()
+        return eng, (spd_solve.launches, build_solve.launches,
+                     build_solve.launches_hot)
+
+    start = {}
+    graph, graph_counts = run(True)
+    eager, eager_counts = run(False)
+    assert isinstance(graph._program, graphs.EpochGraph)
+    assert graph._program.replays == 2
+    assert torch.equal(graph.user_factors, eager.user_factors)
+    assert torch.equal(graph.item_factors, eager.item_factors)
+    assert graph_counts == eager_counts and sum(eager_counts) > 0
+    graph.load_factors(*start[True])
+    graph.optimize()
+    assert graph._program.replays == 5
+    assert torch.equal(graph.item_factors, eager.item_factors)
+    # every launch the counters add at a replay is a node of the graph: the
+    # profiler sees each kernel the counters count in one replay (CUPTI may
+    # drop one event, never add one)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = kernels.read_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph._program.replay(graph.item_factors)
+        torch.cuda.synchronize()
+    delta = dict(zip(kernels.counter_names(),
+                     (a - b for a, b in zip(kernels.read_counters(), before))))
+    seen = dict.fromkeys(("chol_solve_kernel", "build_solve_kernel",
+                          "reduce_solve_kernel", "hot_gemm_kernel"), 0)
+    for e in prof.key_averages():
+        for name in seen:
+            if e.device_type == DeviceType.CUDA and name in e.key:
+                seen[name] += e.count
+    for got, want in (
+            (seen["chol_solve_kernel"], delta["spd_solve.launches"]),
+            (seen["build_solve_kernel"] + seen["reduce_solve_kernel"],
+             delta["build_solve.launches"]
+             + delta["build_solve.launches_hot"]),
+            (seen["hot_gemm_kernel"], delta["build_solve.launches_hot"])):
+        assert want - 1 <= got <= want, (seen, delta)
+    assert sum(delta.values()) > 0
+
+
+_CAPTURE_ONE_SOLVE = """
+import json, sys
+import torch
+from qmf_tpu_torch.ops import als_ops, graphs
+from qmf_tpu_torch.ops.spd_solve import solve_spd_reference
+
+solver, rows, k = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+g = torch.Generator().manual_seed(rows + k)
+m = torch.randn(rows, k, k, generator=g, dtype=torch.float64)
+a = (m @ m.transpose(1, 2) / k + torch.eye(k, dtype=torch.float64)).to(
+    "cuda", torch.float32)
+b = torch.randn(rows, k, generator=g, dtype=torch.float64).to(
+    "cuda", torch.float32)
+graph = graphs.EpochGraph(lambda a, b: als_ops._solve_dispatch(a, b, solver))
+try:
+    graph(a, b)  # the warm-up, then the capture
+except RuntimeError as exc:
+    print(json.dumps({"captured": False, "error": str(exc)[:400]}))
+    sys.exit(0)
+x = graph(a, b)
+torch.cuda.synchronize()
+err = float((x - solve_spd_reference(a, b)).abs().max())
+print(json.dumps({"captured": True, "max_abs_err": err}))
+"""
+
+
+@pytest.mark.parametrize("solver", ["kernel", "cholesky", "lu"])
+def test_uncaptured_solvers_table_holds(cuda, solver):
+    """ops/graphs.py's UNCAPTURED_SOLVERS holds on this card and torch: one
+    batched solve of 8,192 systems of k = 64 in float32 (a ml20m class's
+    size) through an EpochGraph, in a process of its own (a refused capture
+    can leave the CUDA context unusable). A solver the table lists must be
+    refused; one it does not list must capture and replay to its plain
+    version's result within 1e-3."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from qmf_tpu_torch.ops import graphs
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CAPTURE_ONE_SOLVE, solver, "8192", "64"],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    found = json.loads(proc.stdout.strip().splitlines()[-1])
+    if solver in graphs.UNCAPTURED_SOLVERS:
+        assert not found["captured"], (
+            f"{solver!r} now captures: drop it from UNCAPTURED_SOLVERS")
+        assert "captur" in found["error"].lower(), found["error"]
+    else:
+        assert found["captured"], found
+        assert found["max_abs_err"] <= 1e-3, found

@@ -52,8 +52,10 @@ from qmf_tpu_torch.parallel.dryrun import (
 torch.set_num_threads(1)
 
 F64 = dict(rtol=1e-9, atol=1e-12)
+# fuse_epoch=False: one progress_cb a epoch, as the JAX runs here
 WALS = dict(nepochs=2, nfactors=5, regularization_lambda=0.07,
-            confidence_weight=20.0, init_seed=1, batch_rows=16)
+            confidence_weight=20.0, init_seed=1, batch_rows=16,
+            fuse_epoch=False)
 # f64 WALS runs: hot_width 0 and 4
 WALS_RUNS = {"wals": 0, "wals_hot": 4}
 # f64 BPR runs: the grouped path (batch 64), the in-step legacy stream
@@ -128,8 +130,7 @@ def jax_wals(data):
     out = {}
     for name, hot in WALS_RUNS.items():
         eng = JaxWALSEngine(JaxWALSConfig(
-            **WALS, dtype="float64", solver="lu", fuse_epoch=False,
-            hot_width=hot))
+            **WALS, dtype="float64", solver="lu", hot_width=hot))
         losses = []
         eng.progress_cb = lambda e, loss, dt: losses.append(loss)
         eng.init(_jax(data["wals"]))

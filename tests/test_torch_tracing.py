@@ -58,8 +58,8 @@ def test_trace_without_a_directory_is_a_no_op(tmp_path, monkeypatch):
 def test_trace_around_a_wals_epoch(tmp_path, monkeypatch, where):
     """One CPU WALS epoch under trace(): the written trace holds the
     wals_epoch_1 span, and the solve's operations inside it."""
-    eng = WALSEngine(WALSConfig(nepochs=1, nfactors=4, dtype="float64"),
-                     device="cpu")
+    eng = WALSEngine(WALSConfig(nepochs=1, nfactors=4, dtype="float64",
+                                fuse_epoch=False), device="cpu")
     eng.init(_dataset())
     out = tmp_path / "trace"
     if where == "environment":

@@ -41,9 +41,10 @@ def _dataset(seed=0, n_u=200, n_i=120, nnz=3000):
 
 
 def _port_run(dataset, nepochs=NEPOCHS, **kw):
+    # fuse_epoch=False: one progress_cb a epoch, as the JAX runs here
     losses = []
     eng = WALSEngine(WALSConfig(nepochs=nepochs, nfactors=K, batch_rows=64,
-                                **kw), device="cpu")
+                                fuse_epoch=False, **kw), device="cpu")
     eng.progress_cb = lambda epoch, loss, dt: losses.append(loss)
     eng.init(dataset)
     return eng, losses
