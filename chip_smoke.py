@@ -133,13 +133,32 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    and instantiation seconds, epoch seconds, peak memory, then CUDA
    events around eager epochs and around replays (the replay's device ms
    is the epoch's busy time; the idle share is 1 - busy / wall); (b) after
-   phase 9p: phase 9d's engine ran its SGD loop as a graph, a fresh engine
-   of its configuration runs the loop eagerly on the same keys: updates/s,
-   wall and event ms an epoch, the replay's event ms, a floor on the eager
-   epoch's idle share, peak memory, capture seconds, AUC within 1e-3 of
-   each other; then phase 9b's size in float64, three
-   epochs with a decaying rate, the graph within 1e-9 of the eager loop on
-   the card and on the CPU.
+   phase 9p: phase 9d's engine ran each grouped epoch (pass 1 and the SGD
+   loop) as one graph, a fresh engine of its configuration runs it
+   eagerly on the same keys: updates/s, wall and event ms an epoch, the
+   replay's event ms, a floor on the eager epoch's idle share, peak
+   memory, capture seconds and nodes, AUC within 1e-3 of each other; then
+   phase 9b's size in float64, three epochs with a decaying rate, the
+   graph within 1e-9 of the eager epoch on the card and on the CPU.
+13. the rest of the one-program epochs, on live data: (d) right after
+   12a, on phase 4's engine: WALS class_solve=False (chol_solve.cu once a
+   chunk) against class_solve=True, 2 epochs each from the trained
+   factors, eagerly and as a whole run: factors and losses torch.equal,
+   launches an epoch, peak memory, epoch seconds, the replay's event ms,
+   and the kernel against its plain version on one chunk; (a) after 12b,
+   on phase 9d's engine: the grouped epoch as one graph beside 12b's form
+   (pass 1 eager, the SGD loop a graph) and the eager epoch, each trained
+   again from 9d's start (updates/s, wall and event ms, idle share,
+   capture seconds and nodes, peak memory, AUC within 1e-3 of 9d's); then
+   the rounds sampler: pass 1's stream and overflow count torch.equal to
+   a compaction through torch.nonzero, and one epoch eager, captured and
+   replayed; (b) the packed legacy epoch (grouped_epoch=False, batch
+   32,768) and (c) the in-step one (batch 24,576, not a power of two: a
+   graph of one step, replayed once a step, beside a graph of 64 steps),
+   each eager, captured and replayed on one epoch's draws: updates/s,
+   capture seconds, nodes. In each, the replay is held bit for bit to the
+   eager epoch under torch.use_deterministic_algorithms (index_add_'s
+   default atomics sum duplicate rows in the order the card runs them).
 
 Phases 3, 4, 6, 10a, 10d and 11a run with fuse_epoch=True (the default):
 on the card each epoch is a replay of a captured graph, and the launch
@@ -193,6 +212,11 @@ SERVE_BATCH, SERVE_N, SERVE_SAMPLE, SERVE_GAP, SERVE_TOL = \
 # timed epochs at ml20m.
 BPR_K, BPR_NEG, BPR_BATCH = 30, 3, 32768
 BPR_PACK_ROWS, BPR_F64_TOL, BPR_WARM, BPR_TIMED = 1 << 20, 1e-9, 1, 3
+# Phase 13: the in-step legacy epoch's batch (not a power of two, so the
+# engine samples inside each step), the prefix of its steps that the phase
+# runs (one eager epoch of all 1,978 takes ~18 s on an H100), and the steps
+# of the whole-epoch graph it is measured beside.
+BPR_INSTEP_BATCH, INSTEP_STEPS, INSTEP_WHOLE_STEPS = 24576, 128, 64
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on them.
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -1813,6 +1837,9 @@ def bpr_scale(data, device: str = "cuda") -> dict:
     if not (engine._grouped and engine._pos_bitmap is not None
             and cfg.neg_sampler == "word"):
         raise AssertionError("ml20m did not take the grouped word path")
+    # phase 13 trains again from here
+    start = [t.clone() for t in engine.params]
+    gen_state = engine._generator.get_state()
     epochs, drawn = [], []
     engine.progress_cb = lambda *row: epochs.append(row)
     draw = engine._draw_grouped_keys
@@ -1860,7 +1887,8 @@ def bpr_scale(data, device: str = "cuda") -> dict:
           stream_check=stream)
     return {"engine": engine, "epoch_s": epoch_s, "timed_s": timed,
             "real_triplets": engine._n_real_triplets,
-            "updates_per_s": engine._n_real_triplets / epoch_s, "auc": auc}
+            "updates_per_s": engine._n_real_triplets / epoch_s, "auc": auc,
+            "start": start, "gen_state": gen_state}
 
 
 def profile_bpr_epoch(engine, epoch_s: float,
@@ -2862,9 +2890,9 @@ def graph_epochs(engines: dict, nepochs: int = 3) -> None:
 
 def _bpr_f64_graph(device: str) -> dict:
     """Phase 12b at phase 9b's size in float64: three grouped epochs on
-    the same keys, the rate decaying, through the SGD loop eagerly on the
-    card and on the CPU and as a CUDA graph on the card; max |difference|
-    of the graph's parameters from each."""
+    the same keys, the rate decaying, eagerly on the card and on the CPU
+    and as a CUDA graph on the card (pass 1 and the SGD loop, one graph);
+    max |difference| of the graph's parameters from each."""
     import numpy as np
     import torch
 
@@ -2881,24 +2909,22 @@ def _bpr_f64_graph(device: str) -> dict:
     out = {}
     for run, d in (("graph", device), ("eager", device), ("cpu", "cpu")):
         member = bpr_ops.make_pos_bitmap(u, i, n_users, n_items, device=d)
-        args = (member, 0.025, 0.0025, 1.0, True, bs, BPR_NEG, n_items,
-                n_rounds, "seq", "word")
-        sgd = bpr_ops.grouped_sgd(*args)
+        epoch = bpr_ops.grouped_epoch(
+            pos_up.to(d), member, 0.025, 0.0025, 1.0, n_items, n_pos - 100,
+            True, BPR_NEG, n_rounds, bs, n_pos, True, item_scatter="seq",
+            sampler="word")
         if run == "graph":
-            sgd = graphs.EpochGraph(sgd)
-        params = bpr_ops.BPRParams(*(
-            torch.tensor(a, dtype=torch.float64, device=d) for a in init))
+            epoch = graphs.EpochGraph(epoch)
+        params = [torch.tensor(a, dtype=torch.float64, device=d)
+                  for a in init]
         for e, (rk, ks) in enumerate(keys):
-            params, _ = bpr_ops.sgd_epoch_grouped_keyed(
-                params, rk.to(d), ks.to(d), pos_up.to(d), member,
+            *params, _ = epoch(
+                rk.to(d), ks.to(d),
                 torch.tensor(0.05 * 0.9 ** e, dtype=torch.float64, device=d),
-                0.025, 0.0025, 1.0, n_items=n_items, n_real=n_pos - 100,
-                use_biases=True, num_neg=BPR_NEG, neg_rounds=n_rounds,
-                batch_size=bs, collide_cap=n_pos, item_scatter="seq",
-                sampler="word", sgd=sgd)
+                *params)
         out[run] = [t.cpu() for t in params]
-        if run == "graph" and sgd.replays != len(keys) - 1:
-            raise AssertionError(f"12b f64: {sgd.replays} replays")
+        if run == "graph" and epoch.replays != len(keys) - 1:
+            raise AssertionError(f"12b f64: {epoch.replays} replays")
     diff = {other: max(float((a - b).abs().max())
                        for a, b in zip(out["graph"], out[other]))
             for other in ("eager", "cpu")}
@@ -2908,14 +2934,15 @@ def _bpr_f64_graph(device: str) -> dict:
     return diff
 
 
-def bpr_graphs(data, bpr: dict, device: str = "cuda") -> None:
-    """Phase 12b: BPR's SGD loop as a CUDA graph. Phase 9d's engine ran its
-    loop as a graph (the default on a card); a fresh engine of 9d's
-    configuration runs it eagerly on the same keys: updates/s, wall ms and
-    CUDA-event ms an epoch, a floor on the eager epoch's idle share, peak
-    memory over two epochs of each, capture seconds, test AUC within 1e-3;
-    then phase 9b's size in float64, the graph within 1e-9 of the eager
-    loop on the card and on the CPU."""
+def bpr_graphs(data, bpr: dict, device: str = "cuda"):
+    """Phase 12b: BPR's grouped epoch as a CUDA graph. Phase 9d's engine
+    ran each epoch (pass 1 and the SGD loop) as one graph (the default on a
+    card); a fresh engine of 9d's configuration runs it eagerly on the same
+    keys: updates/s, wall ms and CUDA-event ms an epoch, a floor on the
+    eager epoch's idle share, peak memory over two epochs of each, capture
+    seconds, test AUC within 1e-3; then phase 9b's size in float64, the
+    graph within 1e-9 of the eager epoch on the card and on the CPU.
+    Returns 9d's engine, which phase 13 trains again."""
     import statistics
 
     import torch
@@ -2928,9 +2955,9 @@ def bpr_graphs(data, bpr: dict, device: str = "cuda") -> None:
     t0 = time.time()
     train, test = data
     graph_engine = bpr.pop("engine")
-    program = graph_engine._sgd_program
+    program = graph_engine._program
     if not isinstance(program, graphs.EpochGraph):
-        raise AssertionError(f"9d's SGD loop was not a graph: {program!r}")
+        raise AssertionError(f"9d's epoch was not a graph: {program!r}")
     me = MetricsEngine(MetricsConfig(num_test_users=3000, seed=SEED))
     me.add_test_avg_metric("auc")
     cfg = BPRConfig(nepochs=BPR_WARM + BPR_TIMED, nfactors=BPR_K,
@@ -2939,7 +2966,7 @@ def bpr_graphs(data, bpr: dict, device: str = "cuda") -> None:
     engine = BPREngine(cfg, me, device=device)
     engine.init(train)
     engine.init_test(test)
-    engine._sgd_program = engine._grouped_sgd_body()  # eager on the card
+    engine._program = engine._epoch_body()  # eager on the card
     epochs = []
     engine.progress_cb = lambda *row: epochs.append(row)
     engine.optimize()
@@ -2964,7 +2991,7 @@ def bpr_graphs(data, bpr: dict, device: str = "cuda") -> None:
         peak["graph"]
     replay_ms = [_event_ms(lambda: program.replay(*program.inputs))
                  for _ in range(2)]
-    del engine, graph_engine
+    del engine
     torch.cuda.empty_cache()
     f64 = _bpr_f64_graph(device)
     n = bpr["real_triplets"]
@@ -2981,7 +3008,7 @@ def bpr_graphs(data, bpr: dict, device: str = "cuda") -> None:
               w for w, _ in eager_ms), 3),
           eager_epoch_event_ms=round(statistics.median(
               d for _, d in eager_ms), 3),
-          sgd_replay_event_ms=round(statistics.median(
+          replay_event_ms=round(statistics.median(
               d for _, d in replay_ms), 3),
           eager_idle_share_at_least=round(
               1 - statistics.median(d for _, d in graph_ms)
@@ -2989,10 +3016,420 @@ def bpr_graphs(data, bpr: dict, device: str = "cuda") -> None:
           capture_s=round(program.capture_s, 4),
           record_s=round(program.record_s, 4),
           instantiate_s=round(program.instantiate_s, 4),
+          graph_nodes=program.nodes,
           graph_test_auc=bpr["auc"], eager_test_auc=auc,
           graph_epochs_peak_bytes=graph_peak,
           eager_epochs_peak_bytes=eager_peak,
           f64_graph_max_abs_diff=f64, f64_tol=BPR_F64_TOL)
+    return graph_engine
+
+
+def class_solve_check(engine, nepochs: int = 2) -> dict:
+    """Phase 13d: WALS class_solve=False (each chunk solved as it is built,
+    chol_solve.cu once a chunk) on phase 4's engine and packed data,
+    against class_solve=True, ``nepochs`` epochs each from phase 4's
+    trained factors, eagerly (fuse_epoch=False) and as a whole run (one
+    CUDA graph): factors and losses torch.equal to True's (the kernel
+    solves each system alone), launches an epoch (one a chunk against one
+    a class), the process's peak memory in each run and one eager epoch's
+    peak above what is resident before it (its working set), epoch
+    seconds, capture seconds, the replay's event ms; and the kernel
+    against its plain version on one chunk of the largest user class, as
+    the path hands it over. Returns the
+    chol_solve launches of the class_solve=False runs."""
+    import torch
+
+    from qmf_tpu_torch.ops import als_ops, spd_solve
+
+    t0 = time.time()
+    cfg = engine.config
+    keep = (cfg.nepochs, cfg.fuse_epoch, cfg.class_solve, engine.progress_cb)
+    cfg.nepochs = nepochs
+    start = (engine.user_factors[: engine.nusers].clone(),
+             engine.item_factors[: engine.nitems].clone())
+    # (rows, width, chunk rows) of every class of both sides
+    shapes = [(c[1].shape[0], c[1].shape[1], b) for side in ("user", "item")
+              for c, b in zip(getattr(engine, f"_{side}_classes"),
+                              getattr(engine, f"_{side}_chunks"))]
+    n_chunks = sum(-(-rows // b) for rows, _, b in shapes)
+    n_classes = len(shapes)
+    k = cfg.nfactors
+    runs, replay_ms, working = {}, {}, {}
+    for class_solve in (True, False):
+        cfg.class_solve = class_solve
+        engine._body = None
+        # one eager epoch's memory above what is resident before it
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = engine._epoch_body()(engine.item_factors)
+        torch.cuda.synchronize()
+        working[class_solve] = torch.cuda.max_memory_allocated() - base
+        del out
+        for mode in ("eager", "whole_run"):
+            runs[class_solve, mode] = _wals_mode(engine, mode, nepochs, start)
+        graph = engine._program
+        replay_ms[class_solve] = [
+            _event_ms(lambda: graph.replay(engine.item_factors))[1]
+            for _ in range(2)]
+        del graph
+        engine._program = None
+        torch.cuda.empty_cache()
+    launches = 0
+    equal = {}
+    for mode in ("eager", "whole_run"):
+        split, whole = runs[False, mode], runs[True, mode]
+        per_epoch = (split["launches_per_epoch"]["chol_solve"],
+                     whole["launches_per_epoch"]["chol_solve"])
+        if per_epoch != (n_chunks, n_classes):
+            raise AssertionError(f"13d {mode}: chol_solve launches an epoch "
+                                 f"{per_epoch}, expected ({n_chunks}, "
+                                 f"{n_classes})")
+        launches += split["launches_per_epoch"]["chol_solve"] * nepochs
+        equal[mode] = (torch.equal(split["u"], whole["u"])
+                       and torch.equal(split["v"], whole["v"])
+                       and split["losses"] == whole["losses"])
+        if not equal[mode]:
+            raise AssertionError(
+                f"13d {mode}: class_solve=False differs from True: "
+                f"{_normwise_err(split['v'], whole['v'])}, losses "
+                f"{split['losses']} vs {whole['losses']}")
+    # the kernel against its plain version on a chunk of the path
+    biggest = _biggest_user_class(engine)
+    _, col, val, mask = engine._user_classes[biggest]
+    chunk = engine._user_chunks[biggest]
+    y = engine.item_factors
+    a, b, _ = als_ops._build_bucket(
+        y, als_ops.gramian(y), col[:chunk], val[:chunk], mask[:chunk],
+        cfg.confidence_weight, cfg.regularization_lambda,
+        cfg.matmul_precision)
+    err, scaled = _normwise_err(spd_solve.solve_spd(a, b),
+                                spd_solve.solve_spd_reference(a, b))
+    if not scaled <= 5 * F32_TOL:
+        raise AssertionError(f"13d chunk: kernel vs plain normwise {scaled}")
+    cfg.nepochs, cfg.fuse_epoch, cfg.class_solve, engine.progress_cb = keep
+    engine._body = engine._program = None
+    _line("13d class_solve", t0, nepochs=nepochs, classes=n_classes,
+          chunks=n_chunks, chunk_rows=chunk, chunk_max_abs_err=err,
+          class_epoch_working_bytes=working[True],
+          chunk_epoch_working_bytes=working[False],
+          largest_class_a_bytes=max(r for r, _, _ in shapes) * k * k * 4,
+          largest_chunk_a_bytes=max(min(r, b) for r, _, b in shapes)
+          * k * k * 4,
+          widest_chunk_entries=max(min(r, b) * d for r, d, b in shapes),
+          chunk_normwise_err=scaled, equal_to_class_solve=equal,
+          **{f"{'chunk' if not cs else 'class'}_{mode}_{key}": r[key]
+             for (cs, mode), r in runs.items()
+             for key in ("launches_per_epoch", "epoch_s", "capture_s",
+                         "peak_bytes", "losses", "auc")
+             if r[key] is not None},
+          **{f"{'chunk' if not cs else 'class'}_replay_event_ms":
+             [round(x, 3) for x in ms] for cs, ms in replay_ms.items()})
+    return {"launches": launches}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch.use_deterministic_algorithms for a comparison: index_add_ then
+    sums the rows a step adds to one place in a fixed order (a sort),
+    where its default atomics add them in the order the card runs them, so
+    an eager epoch and a replay of the same work can be held to each other
+    bit for bit."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _compact_nonzero(mask, cap):
+    """Phase 13a's reference for bpr_ops._compact: the first ``cap`` set
+    positions through torch.nonzero (whose shape waits for the device) and
+    the count beyond ``cap``, as the presampler compacted before its buffer
+    had a fixed size."""
+    import torch
+
+    cidx = torch.nonzero(mask).squeeze(1)[:cap].to(torch.int32)
+    return cidx, torch.clamp(mask.sum(dtype=torch.int32) - cap, min=0)
+
+
+def _program_forms(body, draws, start, calls: int,
+                   check_calls: int | None = None) -> dict:
+    """Phase 13: one epoch of ``body`` from the parameters ``start`` on the
+    draws ``draws()`` (a new tuple each call, its step counter at 0):
+    ``calls`` calls of ``body`` make the epoch (graphs.run_steps: one for an
+    epoch program, the steps for a step program). In the default mode, for
+    the times: eagerly, as an EpochGraph (its first call: the warm-up, the
+    capture and the epoch's other steps as replays), and replayed from
+    ``start`` again; host ms and CUDA-event ms of each. Then under
+    _deterministic(), with a graph of its own, the eager run (for an epoch
+    program, the warm-up of the graph's first call) against the replay
+    over ``check_calls`` calls (the epoch's unless given): every output
+    torch.equal, or raise."""
+    import torch
+
+    from qmf_tpu_torch.ops import graphs
+
+    def run(program, params, n):
+        return graphs.run_steps(program, (*draws(), *params), n)
+
+    def fresh():
+        return [t.clone() for t in start]
+
+    def reset(graph):
+        for static, t in zip(graph.inputs[-3:], start):
+            static.copy_(t)
+        return graph.inputs[-3:]
+
+    eager = _event_ms(lambda: run(body, fresh(), calls))
+    graph = graphs.EpochGraph(body)
+    torch.cuda.reset_peak_memory_stats()
+    first = _event_ms(lambda: run(graph, fresh(), calls))
+    peak = torch.cuda.max_memory_allocated()
+    replay = _event_ms(lambda: run(graph, reset(graph), calls))
+    out = {"eager_wall_ms": round(eager[0], 3),
+           "eager_event_ms": round(eager[1], 3),
+           "first_call_wall_ms": round(first[0], 3),
+           "replay_wall_ms": round(replay[0], 3),
+           "replay_event_ms": round(replay[1], 3),
+           "capture_s": round(graph.capture_s, 4),
+           "instantiate_s": round(graph.instantiate_s, 4),
+           "graph_nodes": graph.nodes, "graph_calls": graph.replays + 1,
+           "first_call_peak_bytes": peak}
+    del graph
+    n = check_calls or calls
+    with _deterministic():
+        times = [time.time()]
+        graph = graphs.EpochGraph(body)
+        if n == 1:
+            # the first call's warm-up is the eager call of body
+            want = [t.clone() for t in run(graph, fresh(), n)]
+        else:
+            want = run(body, fresh(), n)
+            run(graph, fresh(), n)
+        torch.cuda.synchronize()
+        times.append(time.time())
+        got = run(graph, reset(graph), n)
+        torch.cuda.synchronize()
+        times.append(time.time())
+        equal = [torch.equal(a, b) for a, b in zip(got, want)]
+        if not all(equal):
+            raise AssertionError(f"a replay differs from the eager run "
+                                 f"(outputs equal: {equal})")
+        out.update(deterministic_equal_to_eager=True, deterministic_calls=n,
+                   deterministic_graph_nodes=graph.nodes,
+                   deterministic_capture_s=round(graph.capture_s, 3),
+                   deterministic_s=[round(b - a, 3)
+                                    for a, b in zip(times, times[1:])])
+    del graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bpr_form(engine, program, bpr: dict) -> dict:
+    """Phase 13a: phase 9d's engine trained again from its start, its
+    generator's first state and the first rate, with ``program`` as its
+    epoch program: 9d's epochs (one warm-up, three timed), then two more
+    epochs each between CUDA events."""
+    import statistics
+
+    import torch
+
+    from qmf_tpu_torch.ops import bpr_ops
+
+    engine.params = bpr_ops.BPRParams(*(t.clone() for t in bpr["start"]))
+    engine.learning_rate = engine.config.init_learning_rate
+    engine._generator.set_state(bpr["gen_state"])
+    engine.overflow_slots = 0
+    engine._program = program
+    epochs = []
+    engine.progress_cb = lambda *row: epochs.append(row)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine.optimize()
+    peak = torch.cuda.max_memory_allocated()
+    auc = engine.metrics_engine.last("test_avg_auc")[1]
+    ms = [_event_ms(engine._epoch) for _ in range(2)]
+    epoch_s = statistics.median(dt for _, _, _, dt in epochs[BPR_WARM:])
+    return {"epoch_s": [round(dt, 4) for _, _, _, dt in epochs],
+            "updates_per_s": round(bpr["real_triplets"] / epoch_s, 1),
+            "wall_ms": round(statistics.median(w for w, _ in ms), 3),
+            "event_ms": round(statistics.median(d for _, d in ms), 3),
+            "test_auc": auc, "peak_bytes": peak}
+
+
+def bpr_programs(engine, bpr: dict) -> None:
+    """Phase 13a-c: BPR's epochs as one program each, on phase 9d's engine
+    and its ml20m data (nothing read or packed again).
+
+    (a) The grouped epoch (word, 9d's configuration), pass 1 included, as
+    one graph, beside 12b's form (pass 1 eager, the SGD loop a graph) and
+    the eager epoch, each trained again from 9d's start on 9d's keys:
+    updates/s, wall and event ms an epoch, the idle share against the
+    graph's busy time, capture seconds and nodes, peak memory, AUC within
+    1e-3 of 9d's. Then the ``rounds`` sampler on one set of keys: pass 1's
+    packed stream and overflow count torch.equal to the pass 1 that
+    compacts through torch.nonzero, and the epoch eager, captured and
+    replayed (_program_forms).
+    (b) The packed legacy epoch (grouped_epoch=False, batch 32,768),
+    (c) the in-step legacy epoch (batch 24,576, not a power of two), each
+    through _program_forms on one epoch's draws, (c) on the epoch's first
+    INSTEP_STEPS steps; for (c) also a graph of INSTEP_WHOLE_STEPS steps,
+    the form it did not take: its capture seconds and nodes beside the
+    one-step graph's."""
+    import numpy as np
+    import torch
+
+    from qmf_tpu_torch.ops import bpr_ops, graphs
+
+    t0 = time.time()
+    cfg = engine.config
+    member = engine._pos_bitmap
+    n_real = bpr["real_triplets"]
+    # (a) the three forms of the word epoch
+    pack = dict(n_items=engine.nitems, n_real=engine._n_real_pos,
+                num_neg=BPR_NEG, n_rounds=cfg.neg_resample_rounds,
+                wpu=member.words_per_user, u_shift=1 + 2 * BPR_NEG,
+                feistel_b=engine._grp_batch.bit_length() - 1,
+                collide_cap=engine._collide_cap)
+    loop = graphs.EpochGraph(bpr_ops.grouped_sgd(
+        member, cfg.user_lambda, cfg.item_lambda, cfg.bias_lambda,
+        cfg.use_biases, engine._grp_batch, BPR_NEG, engine.nitems,
+        cfg.neg_resample_rounds, cfg.item_scatter, cfg.neg_sampler))
+
+    def loop_graph(rk, ks, lr, uf, itf, ib):
+        enc, p, over = bpr_ops._sample_pack_grouped_body(
+            rk, ks, engine._grp_up, member.words, membership="word", **pack)
+        return (*loop(enc, p, rk, lr, uf, itf, ib), over)
+
+    whole = graphs.EpochGraph(engine._epoch_body())
+    forms = {"whole_graph": _bpr_form(engine, whole, bpr),
+             "loop_graph": _bpr_form(engine, loop_graph, bpr),
+             "eager": _bpr_form(engine, engine._epoch_body(), bpr)}
+    busy = forms["whole_graph"]["event_ms"]
+    for name, form in forms.items():
+        form["idle_share"] = round(1 - busy / form["wall_ms"], 4)
+        if not abs(form["test_auc"] - bpr["auc"]) <= 1e-3:
+            raise AssertionError(f"13a {name}: AUC {form['test_auc']} vs "
+                                 f"9d's {bpr['auc']}")
+    _line("13a whole grouped epoch", t0, k=BPR_K, batch=BPR_BATCH,
+          sampler="word", real_triplets=n_real, ninth_d_auc=bpr["auc"],
+          whole_capture_s=round(whole.capture_s, 4),
+          whole_record_s=round(whole.record_s, 4),
+          whole_instantiate_s=round(whole.instantiate_s, 4),
+          whole_nodes=whole.nodes, loop_capture_s=round(loop.capture_s, 4),
+          loop_nodes=loop.nodes,
+          **{f"{name}_{k}": v for name, form in forms.items()
+             for k, v in form.items()})
+    del whole, loop, forms
+    engine._program = None
+
+    # (a) rounds: the fixed collision buffer at ml20m
+    t0 = time.time()
+    rounds = bpr_ops.grouped_epoch(
+        engine._grp_up, member, cfg.user_lambda, cfg.item_lambda,
+        cfg.bias_lambda, engine.nitems, engine._n_real_pos, cfg.use_biases,
+        BPR_NEG, cfg.neg_resample_rounds, engine._grp_batch,
+        engine._collide_cap, True, item_scatter=cfg.item_scatter,
+        sampler="rounds")
+    gen = torch.Generator(device=engine.device).manual_seed(SEED)
+    rk, ks = bpr_ops.draw_grouped_keys(gen, cfg.neg_resample_rounds, True)
+    lr = torch.full((), cfg.init_learning_rate, device=engine.device)
+    fixed = bpr_ops._sample_pack_grouped_body(
+        rk, ks, engine._grp_up, member.words, membership="bitmap", **pack)
+    compact = bpr_ops._compact
+    bpr_ops._compact = _compact_nonzero
+    try:
+        ref = bpr_ops._sample_pack_grouped_body(
+            rk, ks, engine._grp_up, member.words, membership="bitmap",
+            **pack)
+    finally:
+        bpr_ops._compact = compact
+    if not all(torch.equal(a, b) for a, b in zip(fixed, ref)):
+        raise AssertionError("13a rounds: pass 1 on the fixed buffer differs "
+                             "from the nonzero compaction's")
+    colliders = int(ref[2]) + engine._collide_cap  # valid when it overflows
+    pass1_s = time.time() - t0
+    forms = _program_forms(rounds, lambda: (rk, ks, lr), bpr["start"], 1)
+    _line("13a rounds", t0, collide_cap=engine._collide_cap,
+          pass1_s=round(pass1_s, 3),
+          n_overflow=int(fixed[2]),
+          overflowed_colliders=colliders if int(ref[2]) else None,
+          pass1_equal_to_nonzero=True,
+          eager_updates_per_s=round(n_real / forms["eager_wall_ms"] * 1e3, 1),
+          replay_updates_per_s=round(
+              n_real / forms["replay_wall_ms"] * 1e3, 1), **forms)
+    del fixed, ref, rounds
+
+    # (b) and (c): the legacy epochs on the same positives
+    cfg.grouped_epoch = False
+    for phase, batch in (("13b packed legacy", BPR_BATCH),
+                         ("13c in-step legacy", BPR_INSTEP_BATCH)):
+        t0 = time.time()
+        cfg.batch_size = batch
+        engine._tri_users = engine._tri_items = engine._tri_weights = None
+        torch.cuda.empty_cache()
+        engine._build_triplet_stream()
+        torch.cuda.synchronize()
+        stream_s = time.time() - t0
+        engine._program = None
+        packed = engine._legacy_packed()
+        if packed != (batch == BPR_BATCH):
+            raise AssertionError(f"{phase}: packed path {packed}")
+        body = engine._epoch_body()
+        draw, cands = engine._draw_legacy()
+        rows = engine._tri_users.shape[0]
+        if packed:
+            calls, n_tri = 1, engine._n_real_triplets
+
+            def draws():
+                return draw, cands, lr
+        else:
+            calls = min(INSTEP_STEPS, cands.shape[0])
+            # the real triplets among the prefix's rows of the stream
+            n_tri = int((engine._tri_weights[draw[: calls * batch].long()]
+                         > 0).sum())
+
+            def draws():
+                return (torch.zeros((), dtype=torch.int64,
+                                    device=engine.device), draw, cands, lr)
+        t1 = time.time()
+        forms = _program_forms(body, draws, bpr["start"], calls)
+        forms_s = time.time() - t1
+        extra = {}
+        if not packed:
+            # the form not taken: one graph of INSTEP_WHOLE_STEPS steps
+            def prefix(*inputs):
+                for _ in range(INSTEP_WHOLE_STEPS):
+                    out = body(*inputs)
+                return out
+
+            g = graphs.EpochGraph(prefix)
+            g(*draws(), *(t.clone() for t in bpr["start"]))
+            extra = {"whole_form_steps": INSTEP_WHOLE_STEPS,
+                     "whole_form_capture_s": round(g.capture_s, 4),
+                     "whole_form_nodes": g.nodes,
+                     "whole_form_nodes_per_step": g.nodes / INSTEP_WHOLE_STEPS,
+                     "whole_form_epoch_nodes_est": round(
+                         g.nodes * (rows // batch) / INSTEP_WHOLE_STEPS),
+                     "whole_form_epoch_capture_s_est": round(
+                         g.capture_s * (rows // batch) / INSTEP_WHOLE_STEPS,
+                         2)}
+            del g
+        _line(phase, t0, batch=batch, stream_rows=rows,
+              epoch_steps=rows // batch, steps_run=rows // batch if packed
+              else calls, real_triplets=n_tri, stream_s=round(stream_s, 3),
+              forms_s=round(forms_s, 3),
+              eager_updates_per_s=round(n_tri / forms["eager_wall_ms"] * 1e3,
+                                        1),
+              replay_updates_per_s=round(
+                  n_tri / forms["replay_wall_ms"] * 1e3, 1),
+              **forms, **extra)
+        del body, draw, cands
+    if not np.isfinite(float(engine.params[0].abs().max())):
+        raise AssertionError("13: non-finite parameters")
 
 
 def main() -> int:
@@ -3015,13 +3452,16 @@ def main() -> int:
         gathers = gather_check(split_engine)
         serving(cli_files, data, split_engine)
         graph_epochs({"split": split_engine, "fused_hot": fused_engine})
+        class_solve = class_solve_check(split_engine)
         del split_engine, fused_engine
         torch.cuda.empty_cache()
         bpr_check()
         bpr_cli(cli_files)
         bpr = bpr_scale(data)
         profile_bpr_epoch(bpr["engine"], bpr["epoch_s"])
-        bpr_graphs(data, bpr)
+        bpr_engine = bpr_graphs(data, bpr)
+        bpr_programs(bpr_engine, bpr)
+        del bpr_engine
         torch.cuda.empty_cache()
         t0 = time.time()
         _line("10 sharded launches", t0,
@@ -3054,7 +3494,7 @@ def main() -> int:
         "route": "cuda",
         "source": "qmf_tpu_torch/csrc/chol_solve.cu",
         "replaces": "qmf_tpu/ops/pallas_solve.py:155",
-        "launches": main_path["launches"],
+        "launches": main_path["launches"] + class_solve["launches"],
         "max_abs_err": main_path["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

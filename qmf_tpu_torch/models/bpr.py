@@ -17,12 +17,15 @@
   ``batch_size * num_negative_samples`` triplets; all updates in a batch read
   pre-batch parameters and scatter-add their gradients — the deterministic
   synchronous equivalent of Hogwild's unsynchronized concurrency.
-  A grouped epoch is two programs, as in qmf_tpu: the presample and pack,
-  eager (its compaction reads a count on the host), then the SGD loop over
-  every step, which on a CUDA device is captured as one CUDA graph at the
-  first epoch and replayed (ops/graphs.py), the decaying rate read from a
-  device scalar; gloo ranks and the CPU run the loop eagerly (decided once,
-  logged). The legacy triplet epochs run eagerly.
+  Each epoch is one program (``_epoch_program``): the grouped epoch (the
+  presample and pack, then the SGD loop over every step: qmf_tpu's two
+  programs as one) and the packed legacy epoch are each captured as one
+  CUDA graph at the first epoch and replayed (ops/graphs.py); the legacy
+  epoch with sampling inside each step is a graph of one step, replayed
+  once a step with its step index on the device (qmf_tpu's ``lax.scan``
+  body). The decaying rate is a device scalar, the draws come before the
+  program; gloo ranks and the CPU run the same functions eagerly (decided
+  once, logged).
 - divergence guard: the reference CHECKs isfinite on every loss derivative
   (BPREngine.cpp:184-185); here factor finiteness is checked each epoch and
   raises with the same guidance.
@@ -106,9 +109,11 @@ class BPREngine(Engine):
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(config.init_seed)
         self._grouped = False
-        # the grouped epoch's SGD loop (bpr_ops.grouped_sgd), or a CUDA
-        # graph of it (graphs.EpochGraph): made at the first grouped epoch
-        self._sgd_program = None
+        # the epoch as one program (_epoch_body's function, or a CUDA graph
+        # of it: graphs.EpochGraph), made at the first epoch, with the
+        # reasons it runs eagerly
+        self._program = None
+        self._eager_reasons: list = []
         self._grp_up = None  # (n_stream, 2) interleaved [user, item] rows
         self._last_overflow = None
         # colliders beyond the presampler's buffer, summed over the epochs
@@ -450,83 +455,80 @@ class BPREngine(Engine):
         return (self._pos_bitmap if self._pos_bitmap is not None
                 else self._pos_bloom)
 
-    def _grouped_sgd_body(self):
-        """The grouped epoch's SGD loop as eager ops (bpr_ops.grouped_sgd)
-        for this engine's configuration."""
+    def _epoch_body(self):
+        """The epoch of this engine's path as eager ops, a function of the
+        epoch's draws, rate and parameters: bpr_ops.grouped_epoch (grouped),
+        bpr_ops.packed_epoch (legacy, negatives presampled) or
+        bpr_ops.instep_step (legacy, sampled inside each step: one step)."""
         cfg = self.config
-        return bpr_ops.grouped_sgd(
-            self._membership(), cfg.user_lambda, cfg.item_lambda,
-            cfg.bias_lambda, cfg.use_biases, self._grp_batch,
-            cfg.num_negative_samples, self.nitems, cfg.neg_resample_rounds,
-            cfg.item_scatter, cfg.neg_sampler, self.mesh)
+        hyper = (cfg.user_lambda, cfg.item_lambda, cfg.bias_lambda)
+        shuffle = cfg.shuffle_training_set
+        if self._grouped:
+            return bpr_ops.grouped_epoch(
+                self._grp_up, self._membership(), *hyper, self.nitems,
+                self._n_real_pos, cfg.use_biases, cfg.num_negative_samples,
+                cfg.neg_resample_rounds, self._grp_batch, self._collide_cap,
+                shuffle,
+                self._pos_set if self._pos_bloom is not None else None,
+                cfg.item_scatter, cfg.neg_sampler, self.mesh)
+        batch = min(cfg.batch_size, self._tri_users.shape[0])
+        if self._legacy_packed():
+            return bpr_ops.packed_epoch(
+                torch.stack([self._tri_users, self._tri_items], dim=1),
+                self._pos_bitmap, self._n_real_triplets, *hyper,
+                cfg.use_biases, batch, shuffle, self.mesh)
+        bpr_ops.log_fallback(bpr_ops.packed_path_reasons(
+            self._tri_users.shape[0], self.nitems, batch,
+            self._pos_bitmap is not None, self._n_real_triplets))
+        return bpr_ops.instep_step(
+            self._tri_users, self._tri_items, self._tri_weights,
+            self._pos_set.indptr, self._pos_set.items, *hyper,
+            cfg.use_biases, self._pos_set.max_degree, batch, mesh=self.mesh)
 
-    def _grouped_sgd(self):
-        """The grouped epoch's SGD loop, made at the first grouped epoch: a
-        CUDA graph captured at its first call (graphs.EpochGraph) where
-        nothing in ``graphs.eager_reasons`` stands against it (the device,
-        the mesh's backend), else the eager loop. Decided once an engine,
-        and logged. The presample before it stays eager: its compaction
-        reads a count on the host."""
-        if self._sgd_program is None:
-            self._sgd_program, _ = graphs.epoch_program(
-                "BPR SGD loop", self._grouped_sgd_body(), self.device,
-                self.mesh)
-        return self._sgd_program
+    def _epoch_program(self):
+        """The epoch as one program, made at the first epoch: a CUDA graph
+        of :meth:`_epoch_body` captured at its first call (graphs.EpochGraph)
+        where nothing in ``graphs.eager_reasons`` stands against it (the
+        device, the mesh's backend), else the body itself. Decided once an
+        engine, and logged."""
+        if self._program is None:
+            name = ("BPR grouped epoch" if self._grouped
+                    else "BPR packed legacy epoch" if self._legacy_packed()
+                    else "BPR in-step legacy step")
+            self._program, self._eager_reasons = graphs.epoch_program(
+                name, self._epoch_body(), self.device, self.mesh)
+        return self._program
 
     def _epoch(self) -> None:
-        """One epoch: this epoch's draws, then shuffle + sample + all
-        steps on them."""
-        cfg = self.config
-        hyper = (self.learning_rate, cfg.user_lambda, cfg.item_lambda,
-                 cfg.bias_lambda)
+        """One epoch: this epoch's draws, then the epoch's program on them
+        (shuffle + sample + all steps)."""
+        program = self._epoch_program()
+        # the rate as a tensor on the device: a captured program reads it
+        # there each epoch (it decays between epochs)
+        lr = torch.full((), self.learning_rate, dtype=self.dtype,
+                        device=self.device)
         if self._grouped:
-            # the rate as a tensor on the device: a captured loop reads it
-            # there each epoch (it decays between epochs)
-            lr = torch.full((), self.learning_rate, dtype=self.dtype,
-                            device=self.device)
-            hyper = (lr,) + hyper[1:]
             rk, ks = self._draw_grouped_keys()
-            self.params, self._last_overflow = (
-                bpr_ops.sgd_epoch_grouped_keyed(
-                    self.params,
-                    rk,
-                    ks,
-                    self._grp_up,
-                    self._membership(),
-                    *hyper,
-                    n_items=self.nitems,
-                    n_real=self._n_real_pos,
-                    use_biases=cfg.use_biases,
-                    num_neg=cfg.num_negative_samples,
-                    neg_rounds=cfg.neg_resample_rounds,
-                    batch_size=self._grp_batch,
-                    collide_cap=self._collide_cap,
-                    pos_set=self._pos_set
-                    if self._pos_bloom is not None else None,
-                    item_scatter=cfg.item_scatter,
-                    sampler=cfg.neg_sampler,
-                    mesh=self.mesh,
-                    sgd=self._grouped_sgd(),
-                )
-            )
-            return
-        shuffle_draw, cands = self._draw_legacy()
-        self.params = bpr_ops.sgd_epoch_drawn(
-            self.params,
-            shuffle_draw,
-            cands,
-            self._tri_users,
-            self._tri_items,
-            self._tri_weights,
-            self._pos_set,
-            *hyper,
-            n_items=self.nitems,
-            use_biases=cfg.use_biases,
-            batch_size=min(cfg.batch_size, self._tri_users.shape[0]),
-            bitmap=self._pos_bitmap,
-            n_real=self._n_real_triplets,
-            mesh=self.mesh,
-        )
+            if ks is None:
+                ks = bpr_ops.no_keys(6, self.device)
+            *params, self._last_overflow = program(rk, ks, lr, *self.params)
+        elif self._legacy_packed():
+            ks, cands = self._draw_legacy()
+            if ks is None:
+                ks = bpr_ops.no_keys(3, self.device)
+            params = program(ks, cands, lr, *self.params)
+        else:
+            perm, cands = self._draw_legacy()
+            if perm is None:
+                perm = bpr_ops.stream_rows(self._tri_users.shape[0],
+                                           self.device)
+            step = torch.zeros((), dtype=torch.int64, device=self.device)
+            _, *params = graphs.run_steps(
+                program, (step, perm, cands, lr, *self.params),
+                cands.shape[0])
+        # a graph's outputs are its static buffers: the parameters it
+        # updates in place, which the next replay reads where they are
+        self.params = BPRParams(*params)
 
     def enable_checkpointing(self, directory: str, every: int = 1) -> None:
         """Per-epoch checkpoint + auto-resume (utils/checkpoint.py)."""

@@ -23,8 +23,9 @@
   eagerly.
 - Each half-epoch is ops/als_ops.py ``_solve_side``: per width class a
   chunked build and one batched SPD solve, which on a CUDA device is the
-  hand-written kernel (solver "kernel"); or, with solver "fused", one
-  build+solve kernel launch per chunk.
+  hand-written kernel (solver "kernel"), or with ``class_solve=False`` one
+  such solve a chunk; or, with solver "fused", one build+solve kernel
+  launch per chunk.
 - ``hot_width`` > 0 splits each side's H hottest fixed-side columns out of
   the gathered stream into static per-row weights (ops/hot.py), built once
   here; "auto" resolves to 0 in the port.
@@ -404,7 +405,7 @@ class WALSEngine(Engine):
                 cfg.confidence_weight, cfg.regularization_lambda,
                 self._solver, cfg.matmul_precision, self.nusers, self.nitems,
                 self._user_chunks, self._item_chunks, self._user_hot,
-                self._item_hot, mesh=self.mesh,
+                self._item_hot, mesh=self.mesh, class_solve=cfg.class_solve,
             )
         return self._body
 

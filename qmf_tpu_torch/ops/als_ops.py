@@ -8,7 +8,8 @@ equations (reference qmf/wals/WALSEngine.cpp:266-310)
 
 a width class of rows at a time: the Gramian is one matmul, the per-row A and
 b are a gather plus batched products, and the solves of a class are one
-batched SPD solve (ops/spd_solve.py: the hand-written CUDA kernel on a GPU).
+batched SPD solve (ops/spd_solve.py: the hand-written CUDA kernel on a GPU),
+or with ``class_solve=False`` one such solve a build chunk.
 With solver="fused" each chunk of a class is gathered and then built and
 solved in one call (ops/build_solve.py: the fused CUDA kernel on a GPU), so
 A never leaves the kernel. With the hot/cold split (ops/hot.py) the head's
@@ -146,19 +147,47 @@ def _build_chunked(y, yty, col_idx, values, mask, alpha, lam, precision,
     return a, b, conf_sum
 
 
+def _solve_chunked(y, yty, col_idx, values, mask, alpha, lam, solver,
+                   precision, chunk_b=None, hot=None, y_hot=None, z=None):
+    """:func:`_build_bucket` and one batched solve a chunk of ``chunk_b``
+    rows (qmf_tpu's in-scan solve, ``_scan_class``, als_ops.py:321-346):
+    each chunk's A is solved as soon as it is built, so no more than one
+    chunk's (A, b) is held. Returns (x, b, conf_sum) for the whole bucket,
+    which the loss reads as :func:`_build_chunked`'s."""
+    n, k = col_idx.shape[0], y.shape[1]
+    x = torch.empty((n, k), dtype=y.dtype, device=y.device)
+    b = torch.empty_like(x)
+    conf_sum = torch.empty((n,), dtype=y.dtype, device=y.device)
+    for s, e in _chunks(n, chunk_b):
+        a, b[s:e], conf_sum[s:e] = _build_bucket(
+            y, yty, col_idx[s:e], values[s:e], mask[s:e], alpha, lam,
+            precision, _hot_rows(hot, s, e), y_hot, z,
+        )
+        x[s:e] = _solve_dispatch(a, b[s:e], solver)
+    return x, b, conf_sum
+
+
 def _solve_bucket_body(y, yty, col_idx, values, mask, alpha, lam, solver,
                        precision="highest", chunk_b=None, hot=None,
-                       y_hot=None, z=None):
+                       y_hot=None, z=None, class_solve=True):
     """Build, solve and loss for one bucket of rows: (x (B,k), loss (B,)).
 
-    The build runs in chunks of ``chunk_b`` rows; the whole bucket is then
-    solved by one batched solve.
+    The build runs in chunks of ``chunk_b`` rows. With ``class_solve`` the
+    whole bucket is then solved by one batched solve; without, each chunk
+    is solved as it is built (:func:`_solve_chunked`). Every system is
+    solved alone either way, so both give the same x and loss.
     """
-    a, b, conf_sum = _build_chunked(
-        y, yty, col_idx, values, mask, alpha, lam, precision, chunk_b, hot,
-        y_hot, z,
-    )
-    x = _solve_dispatch(a, b, solver)
+    if class_solve:
+        a, b, conf_sum = _build_chunked(
+            y, yty, col_idx, values, mask, alpha, lam, precision, chunk_b,
+            hot, y_hot, z,
+        )
+        x = _solve_dispatch(a, b, solver)
+    else:
+        x, b, conf_sum = _solve_chunked(
+            y, yty, col_idx, values, mask, alpha, lam, solver, precision,
+            chunk_b, hot, y_hot, z,
+        )
     return x, _loss_from_solution(x, b, conf_sum, lam)
 
 
@@ -189,15 +218,18 @@ def _fused_class(y_s, ytyl, col_idx, values, mask, alpha, lam, chunk_b,
 
 def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
                 alpha, lam, solver: str, precision: str, hot=None,
-                mesh=None, n_fixed=None):
+                mesh=None, n_fixed=None, class_solve: bool = True):
     """One half-epoch: every width class of one side against fixed ``y``.
 
     Per class: a chunked build and one batched solve (qmf_tpu's "pallas"
-    branch, als_ops.py:492-503), or with solver="fused" one build+solve call
-    per chunk (its "fused" branch, :467-481, gathered per chunk rather than
-    per class: rows are independent, and the (chunk_b, D, k) stream stays
-    bounded; weights and loss stay per class); then the scatter of the
-    solved rows. ``hot`` =
+    branch, als_ops.py:492-503); with ``class_solve=False`` one batched
+    solve a chunk as it is built instead (its in-scan solve, :511-518),
+    which holds one chunk's A rather than the class's; or with
+    solver="fused", which ignores ``class_solve`` as qmf_tpu's does, one
+    build+solve call per chunk (its "fused" branch, :467-481, gathered per
+    chunk rather than per class: rows are independent, and the (chunk_b,
+    D, k) stream stays bounded; weights and loss stay per class); then the
+    scatter of the solved rows. ``hot`` =
     (hot_ids, [per-class (w_a, w_b, conf_hot)]) adds the hot/cold split.
     Returns (new factors (n_rows, k), summed un-normalized loss (0-d)).
 
@@ -250,7 +282,7 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
     ):
         x, row_loss = _solve_bucket_body(
             y, yty, col_idx, values, mask, alpha, lam, solver, precision,
-            chunk_b, hot_cls, y_hot, z,
+            chunk_b, hot_cls, y_hot, z, class_solve,
         )
         loss = loss + row_loss.sum()
         x_out.index_copy_(0, row_ids, _whole_class(x, mesh))
@@ -270,28 +302,30 @@ def _sum_over_ranks(loss: torch.Tensor, mesh) -> torch.Tensor:
 def train_epoch(user_factors, item_factors, user_arrays, item_arrays,
                 alpha, lam, solver: str, precision: str, n_users: int,
                 n_items: int, user_chunks, item_chunks, user_hot=None,
-                item_hot=None, mesh=None):
+                item_hot=None, mesh=None, class_solve: bool = True):
     """One full WALS epoch: users against items, then items against the new
     users (reference WALSEngine.cpp:82-96). Returns
     (u_new, v_new, loss_u, loss_v); the reference logs the item-side loss.
     ``user_hot``/``item_hot`` are each side's hot state, ``mesh`` shares
     each half-epoch's rows among ranks, and the factors it returns are
-    padded to heights the world size divides (see _solve_side)."""
+    padded to heights the world size divides (see _solve_side), which
+    ``class_solve`` also takes."""
     del user_factors  # recomputed from scratch each epoch (reference zeroes)
     u_new, loss_u = _solve_side(
         item_factors, user_arrays, user_chunks, n_users, alpha, lam, solver,
-        precision, user_hot, mesh, n_items,
+        precision, user_hot, mesh, n_items, class_solve,
     )
     v_new, loss_v = _solve_side(
         u_new, item_arrays, item_chunks, n_items, alpha, lam, solver,
-        precision, item_hot, mesh, n_users,
+        precision, item_hot, mesh, n_users, class_solve,
     )
     return u_new, v_new, loss_u, loss_v
 
 
 def epoch_body(user_arrays, item_arrays, alpha, lam, solver: str,
                precision: str, n_users: int, n_items: int, user_chunks,
-               item_chunks, user_hot=None, item_hot=None, mesh=None):
+               item_chunks, user_hot=None, item_hot=None, mesh=None,
+               class_solve: bool = True):
     """:func:`train_epoch` on these classes as a function of the item
     factors alone: ``epoch(item_factors) -> (u_new, v_new, loss_v)``. This
     is the epoch an engine runs as one program, eagerly or captured as a
@@ -302,7 +336,7 @@ def epoch_body(user_arrays, item_arrays, alpha, lam, solver: str,
         u_new, v_new, _, loss_v = train_epoch(
             None, item_factors, user_arrays, item_arrays, alpha, lam, solver,
             precision, n_users, n_items, user_chunks, item_chunks, user_hot,
-            item_hot, mesh,
+            item_hot, mesh, class_solve,
         )
         return u_new, v_new, loss_v
 

@@ -12,11 +12,18 @@ Port of qmf_tpu/ops/bpr_ops.py, function for function under the same names:
 - the grouped epoch: ``_sample_pack_grouped_body`` shuffles the positives,
   presamples every negative as a 2-bit round index and packs the stream;
   ``_sgd_epoch_scan_grouped_body`` walks it in minibatches and rebuilds each
-  negative from the hashes; ``sgd_epoch_grouped`` runs both;
+  negative from the hashes; ``grouped_epoch`` makes both one function of
+  the epoch's keys, rate and parameters, and ``sgd_epoch_grouped`` runs it;
 - the legacy triplet epochs: ``_sample_pack_impl`` with
   ``_sgd_epoch_scan_packed_impl`` (negatives presampled and packed as
-  ``pos << 15 | neg``) and ``_sgd_epoch_impl`` (sampling inside each step,
-  CSR membership); ``sgd_epoch`` chooses between them;
+  ``pos << 15 | neg``; ``packed_epoch`` makes both one function) and
+  ``_sgd_epoch_impl`` (sampling inside each step, CSR membership: the steps
+  of ``instep_step``); ``sgd_epoch`` chooses between them;
+- the functions an engine runs as one program (``grouped_epoch``,
+  ``packed_epoch``, ``instep_step``) read no device value on the host, so
+  on a card each is captured as a CUDA graph (ops/graphs.py): the epoch's
+  rate is a 0-d tensor on the device, the collision buffer of the
+  presampler has a fixed size (``_compact``), and the draws stay outside;
 - the shared step (``_sample_negatives_impl``, ``_sgd_update_body``,
   ``sgd_step``), ``eval_loss`` and ``sample_negatives_host``.
 
@@ -418,7 +425,7 @@ def _sgd_update_body(
     pos_items: torch.Tensor,  # (B,) int32
     neg: torch.Tensor,  # (B,) int32 pre-sampled negatives
     weight: torch.Tensor,  # (B,) 0/1 mask for batch padding
-    lr: float,
+    lr,  # float, or a 0-d tensor of the factors' dtype on their device
     user_lambda: float,
     item_lambda: float,
     bias_lambda: float,
@@ -430,7 +437,15 @@ def _sgd_update_body(
     place. Everything the gradients read is gathered before the first
     scatter, so they see the pre-batch parameters. With ``mesh`` the rows
     are this rank's lanes of a step of ``batch_size`` rows, and the update
-    is the whole step's (:func:`_whole_batch`)."""
+    is the whole step's (:func:`_whole_batch`).
+
+    The rate is folded into each lane's weight, which every gradient term
+    carries, so the updates come out scaled by it (qmf_tpu's
+    ``at[].add(lr * d)`` with the product taken first): as a 0-d tensor on
+    the device it is read there, and a CUDA graph of the step takes each
+    epoch's rate rather than the one it was captured with."""
+    dtype = params.user_factors.dtype
+    weight = weight * torch.as_tensor(lr, dtype=dtype, device=weight.device)
     d, pu, qi, qj = _score_diff(params, users, pos_items, neg, use_biases)
     e = (1.0 / (1.0 + torch.exp(d))) * weight  # masked loss derivative
     wcol = weight[:, None]
@@ -445,12 +460,12 @@ def _sgd_update_body(
     users, pos_items, neg, du, dpos, dneg, dbp, dbn = _whole_batch(
         (users, pos_items, neg, du, dpos, dneg, dbp, dbn), batch_size, mesh)
 
-    params.user_factors.index_add_(0, users, du, alpha=lr)
-    params.item_factors.index_add_(0, pos_items, dpos, alpha=lr)
-    params.item_factors.index_add_(0, neg, dneg, alpha=lr)
+    params.user_factors.index_add_(0, users, du)
+    params.item_factors.index_add_(0, pos_items, dpos)
+    params.item_factors.index_add_(0, neg, dneg)
     if use_biases:
-        params.item_biases.index_add_(0, pos_items, dbp, alpha=lr)
-        params.item_biases.index_add_(0, neg, dbn, alpha=lr)
+        params.item_biases.index_add_(0, pos_items, dbp)
+        params.item_biases.index_add_(0, neg, dbn)
     return params
 
 
@@ -502,7 +517,7 @@ def _sgd_step_body(
     weight: torch.Tensor,  # (B,) 0/1 mask for batch padding
     indptr: torch.Tensor,
     set_items: torch.Tensor,
-    lr: float,
+    lr,  # float, or a 0-d tensor of the factors' dtype on their device
     user_lambda: float,
     item_lambda: float,
     bias_lambda: float,
@@ -563,16 +578,12 @@ def sgd_step(
     )
 
 
-def _sgd_epoch_impl(
-    params: BPRParams,
-    perm: Optional[torch.Tensor],  # (S*B,) permutation, None = no shuffle
-    cands: torch.Tensor,  # (S, neg_rounds, B) int32 candidate items
+def instep_step(
     users_flat: torch.Tensor,  # (S*B,) int32 triplet users (padded)
     items_flat: torch.Tensor,  # (S*B,) int32 positive items
     weights_flat: torch.Tensor,  # (S*B,) 0/1 padding mask
     indptr: torch.Tensor,
     set_items: torch.Tensor,
-    lr: float,
     user_lambda: float,
     item_lambda: float,
     bias_lambda: float,
@@ -582,37 +593,32 @@ def _sgd_epoch_impl(
     bitmap_words: Optional[torch.Tensor] = None,
     wpu: int = 0,
     mesh=None,
-) -> BPRParams:
-    """A full training epoch with sampling inside each step (with ``mesh``,
-    each rank samples and computes its lanes of every step).
-
-    The reference walks the (shuffled) positive-pair vector once per epoch,
-    sampling negatives per pair (BPREngine.cpp:146-176). Here the epoch is
-    a loop over minibatches: an optional permutation of the triplet stream,
-    then per step the negatives from that step's candidates and the SGD
-    update.
-
-    Shuffle-semantics note: the reference shuffles the positive-pair vector
-    and emits num_negative_samples consecutive updates per pair
-    (BPREngine.cpp:172-174); permuting the expanded triplet stream is an
-    equivalent-in-distribution ordering.
-    """
-    if perm is not None:
-        users_flat = users_flat[perm]
-        items_flat = items_flat[perm]
-        weights_flat = weights_flat[perm]
+):
+    """One step of the legacy epoch with sampling inside each step, as a
+    function of its step index and the epoch's draws: ``step(t, perm,
+    cands, lr, uf, itf, ib) -> (t, uf, itf, ib)``. ``t`` is a 0-d int64
+    tensor on the device, which the step reads (rows t*B .. t*B + B - 1 of
+    the stream through ``perm``, the epoch's permutation of it, or an
+    arange without shuffle; ``cands[t]``, (neg_rounds, B) candidate items)
+    and then advances by one; the parameters are updated in place. That is
+    qmf_tpu's ``lax.scan`` body (its ``_sgd_epoch_impl``): a CUDA graph of
+    the step (ops/graphs.py) is replayed once a step, its step index read
+    from the device, since a graph of every step of an epoch would hold
+    ~1,000 kernels for each of its thousands of steps (the CSR binary
+    search). Nothing in it reads a device value on the host. With
+    ``mesh``, each rank samples and computes its lanes of every step."""
     s = users_flat.shape[0] // batch_size
-    u_steps = users_flat.reshape(s, batch_size)
-    i_steps = items_flat.reshape(s, batch_size)
-    w_steps = weights_flat.reshape(s, batch_size)
     lo, hi = _lanes(batch_size, mesh)
-    for t in range(s):
+
+    def step(t, perm, cands, lr, uf, itf, ib):
+        at = t.view(1)
+        rows = perm.view(s, batch_size).index_select(0, at)[0, lo:hi]
         _sgd_step_body(
-            params,
-            cands[t][:, lo:hi],
-            u_steps[t, lo:hi],
-            i_steps[t, lo:hi],
-            w_steps[t, lo:hi],
+            BPRParams(uf, itf, ib),
+            cands.index_select(0, at)[0][:, lo:hi],
+            users_flat[rows],
+            items_flat[rows],
+            weights_flat[rows],
             indptr,
             set_items,
             lr,
@@ -626,6 +632,64 @@ def _sgd_epoch_impl(
             mesh=mesh,
             batch_size=batch_size,
         )
+        t.add_(1)
+        return t, uf, itf, ib
+
+    return step
+
+
+def stream_rows(n: int, device) -> torch.Tensor:
+    """The unshuffled order of an n-row stream: what :func:`instep_step`
+    reads in place of a permutation without shuffle."""
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def _sgd_epoch_impl(
+    params: BPRParams,
+    perm: Optional[torch.Tensor],  # (S*B,) permutation, None = no shuffle
+    cands: torch.Tensor,  # (S, neg_rounds, B) int32 candidate items
+    users_flat: torch.Tensor,  # (S*B,) int32 triplet users (padded)
+    items_flat: torch.Tensor,  # (S*B,) int32 positive items
+    weights_flat: torch.Tensor,  # (S*B,) 0/1 padding mask
+    indptr: torch.Tensor,
+    set_items: torch.Tensor,
+    lr,  # float, or a 0-d tensor of the factors' dtype on their device
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    use_biases: bool,
+    max_degree: int,
+    batch_size: int,
+    bitmap_words: Optional[torch.Tensor] = None,
+    wpu: int = 0,
+    mesh=None,
+) -> BPRParams:
+    """A full training epoch with sampling inside each step: every step of
+    :func:`instep_step`, in order (with ``mesh``, each rank samples and
+    computes its lanes of every step).
+
+    The reference walks the (shuffled) positive-pair vector once per epoch,
+    sampling negatives per pair (BPREngine.cpp:146-176). Here the epoch is
+    a loop over minibatches: an optional permutation of the triplet stream,
+    then per step the negatives from that step's candidates and the SGD
+    update.
+
+    Shuffle-semantics note: the reference shuffles the positive-pair vector
+    and emits num_negative_samples consecutive updates per pair
+    (BPREngine.cpp:172-174); permuting the expanded triplet stream is an
+    equivalent-in-distribution ordering.
+    """
+    dev = users_flat.device
+    step = instep_step(
+        users_flat, items_flat, weights_flat, indptr, set_items, user_lambda,
+        item_lambda, bias_lambda, use_biases, max_degree, batch_size,
+        bitmap_words, wpu, mesh)
+    t = torch.zeros((), dtype=torch.int64, device=dev)
+    if perm is None:
+        perm = stream_rows(users_flat.shape[0], dev)
+    lr = torch.as_tensor(lr, dtype=params.user_factors.dtype, device=dev)
+    for _ in range(users_flat.shape[0] // batch_size):
+        step(t, perm, cands, lr, *params)
     return params
 
 
@@ -793,14 +857,31 @@ def _sample_rounds_word(
 
 
 def _compact(mask: torch.Tensor, cap: int):
-    """(indices of the first ``cap`` set entries in ascending order, the
-    count beyond ``cap`` as an int32 scalar): what qmf_tpu takes from
-    ``jnp.where(mask, size=cap, fill_value=n)``, without its fill rows.
-    The shape of the result depends on the data, so this waits for the
-    device once."""
-    cidx = torch.nonzero(mask).squeeze(1)
+    """qmf_tpu's ``jnp.where(mask, size=cap, fill_value=n)``: a (cap,)
+    int32 buffer of the positions of the first ``cap`` set entries of the
+    (n,) ``mask`` in ascending order, ``n`` in the slots beyond the set
+    count; and the count beyond ``cap`` as an int32 device scalar. A set
+    entry's slot in the buffer is its running count less one, so slot j
+    holds the first position where the running count reaches j + 1: a
+    binary search of the running count (``searchsorted`` gives n where it
+    never does). The shape is fixed and nothing is read on the host, so a
+    CUDA graph captures it; and no two slots are written to one place."""
+    count = torch.cumsum(mask, 0, dtype=torch.int32)
+    want = torch.arange(1, cap + 1, dtype=torch.int32, device=mask.device)
+    cidx = torch.searchsorted(count, want, out_int32=True)
     n_overflow = torch.clamp(mask.sum(dtype=torch.int32) - cap, min=0)
-    return cidx[:cap], n_overflow
+    return cidx, n_overflow
+
+
+def _set_compacted(n: int, cidx: torch.Tensor,
+                   chosen: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 zeros with ``chosen`` set at the positions ``cidx`` of
+    :func:`_compact`, whose fill rows (position n) land in one sink slot
+    past the end and are dropped, as qmf_tpu's ``.at[cidx].set(chosen,
+    mode="drop")`` drops them."""
+    rounds = torch.zeros((n + 1,), dtype=torch.int32, device=cidx.device)
+    rounds.index_put_((cidx,), chosen)
+    return rounds[:n]
 
 
 def _sample_rounds(
@@ -816,9 +897,9 @@ def _sample_rounds(
 
     Exact-rejection semantics (reference BPREngine-inl.h:48-60) at ~1/R of
     the membership cost: only round 0 is tested at full stream width; the
-    ~(avg_degree/n_items) fraction of colliding slots is compacted to at
-    most ``collide_cap`` slots, the first in ascending order, and rounds
-    1..R-1 test only those. Slots colliding in every round keep the LAST
+    ~(avg_degree/n_items) fraction of colliding slots is compacted to a
+    fixed ``collide_cap``-slot buffer (:func:`_compact`), the first in
+    ascending order, and rounds 1..R-1 test only those. Slots colliding in every round keep the LAST
     round's candidate (residual probability (degree/n_items)^R, matching
     sample_negatives).
 
@@ -832,12 +913,12 @@ def _sample_rounds(
     member0 = _is_member_bitmap(
         bitmap, users_slots, _cand_hash(rk[0], f, n_items)
     )
-    rounds = torch.zeros((n,), dtype=torch.int32, device=dev)
     if n_rounds == 1:
-        return rounds, torch.zeros((), dtype=torch.int32, device=dev)
+        return (torch.zeros((n,), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
     cidx, n_overflow = _compact(member0, collide_cap)
-    cf = cidx.to(torch.int32)  # the hash needs its slot index in int32
-    cu = users_slots[cidx]
+    cf = torch.where(cidx < n, cidx, 0)  # fill rows read slot 0
+    cu = users_slots[cf]
     chosen = torch.full(cf.shape, n_rounds - 1, dtype=torch.int32, device=dev)
     found = torch.zeros(cf.shape, dtype=torch.bool, device=dev)
     for r in range(1, n_rounds):
@@ -845,9 +926,7 @@ def _sample_rounds(
         take = (~found) & (~m_r)
         chosen = torch.where(take, r, chosen)
         found = found | take
-    # cidx holds real slots only (no fill rows to drop) and each once
-    rounds[cidx] = chosen
-    return rounds, n_overflow
+    return _set_compacted(n, cidx, chosen), n_overflow
 
 
 def _sample_rounds_bloom(
@@ -875,10 +954,9 @@ def _sample_rounds_bloom(
     hit0 = _is_member_bloom(
         bloom, users_slots, _cand_hash(rk[0], f, n_items)
     )
-    rounds = torch.zeros((n,), dtype=torch.int32, device=dev)
     cidx, n_overflow = _compact(hit0, collide_cap)
-    cf = cidx.to(torch.int32)
-    cu = users_slots[cidx]
+    cf = torch.where(cidx < n, cidx, 0)  # fill rows read slot 0
+    cu = users_slots[cf]
     # exact round-0 verdict for the compacted slots
     m0 = _is_member(pos_set, cu, _cand_hash(rk[0], cf, n_items))
     chosen = torch.where(m0, n_rounds - 1, 0).to(torch.int32)
@@ -888,8 +966,7 @@ def _sample_rounds_bloom(
         take = (~found) & (~m_r)
         chosen = torch.where(take, r, chosen)
         found = found | take
-    rounds[cidx] = chosen
-    return rounds, n_overflow
+    return _set_compacted(n, cidx, chosen), n_overflow
 
 
 def draw_grouped_keys(generator: torch.Generator, n_rounds: int,
@@ -956,8 +1033,9 @@ def _sample_pack_grouped_body(
     else:
         # negative slot index f = row * num_neg + j; users_slots[f] is the
         # user of slot f, so _sample_rounds's f = arange(N_slots) lines up
-        # with the SGD loop's (t * batch + lane) * num_neg + j
-        users_slots = torch.repeat_interleave(u, num_neg)
+        # with the SGD loop's (t * batch + lane) * num_neg + j (each user
+        # repeated num_neg times, of a shape known without the device)
+        users_slots = u[:, None].expand(n_stream, num_neg).reshape(-1)
         if membership == "bloom":
             rounds, n_overflow = _sample_rounds_bloom(
                 rk,
@@ -1204,6 +1282,78 @@ def grouped_path_reject_reason(
     return None
 
 
+def grouped_epoch(
+    pos_up: torch.Tensor,  # (n_stream, 2) int32 padded [user, item] pair rows
+    bitmap,  # PosBitmap (exact) or PosBloom (needs pos_set for verify)
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    n_items: int,
+    n_real: int,
+    use_biases: bool,
+    num_neg: int,
+    neg_rounds: int,
+    batch_size: int,
+    collide_cap: int,
+    shuffle: bool,
+    pos_set: Optional[PosSet] = None,
+    item_scatter: str = "seq",
+    sampler: str = "rounds",
+    mesh=None,
+):
+    """One grouped training epoch for one configuration, as a function of
+    what changes from epoch to epoch: ``epoch(rk, ks, lr, uf, itf, ib) ->
+    (uf, itf, ib, n_overflow)``, the round keys, the six Feistel keys (read
+    only with ``shuffle``: a placeholder of that shape otherwise), the rate
+    as a 0-d tensor and the parameters, updated in place. It is pass 1
+    (:func:`_sample_pack_grouped_body`: shuffle, presample, pack) and then
+    the SGD loop (:func:`grouped_sgd`), qmf_tpu's two programs as one.
+    Nothing in it reads a device value on the host (the collision buffer
+    has a fixed size, :func:`_compact`), so a CUDA graph (ops/graphs.py)
+    captures all of it. ``n_overflow`` is a DEVICE scalar of
+    collision-buffer overflows (callers log it when nonzero, reading it at
+    a point that already syncs).
+
+    With ``mesh`` every rank presamples the whole epoch (the collision
+    buffer compacts over the whole stream, so a slice cannot be presampled
+    alone) and steps its lanes (parallel/sharded_bpr.py).
+
+    Caller contract: pos_up is padded to a multiple of batch_size (a power
+    of two), n_real marks the real prefix length, and
+    grouped_path_reject_reason(...) returned None for this configuration.
+    """
+    is_bloom = isinstance(bitmap, PosBloom)
+    if is_bloom and pos_set is None:
+        raise ValueError("bloom membership requires pos_set for exact verify")
+    use_word = _uses_word(bitmap, sampler, num_neg, neg_rounds)
+    sgd = grouped_sgd(bitmap, user_lambda, item_lambda, bias_lambda,
+                      use_biases, batch_size, num_neg, n_items, neg_rounds,
+                      item_scatter, sampler, mesh)
+    pack = dict(
+        n_items=n_items, n_real=n_real, num_neg=num_neg, n_rounds=neg_rounds,
+        wpu=bitmap.words_per_user, u_shift=1 + 2 * num_neg,
+        feistel_b=batch_size.bit_length() - 1, collide_cap=collide_cap,
+        membership="word" if use_word
+        else ("bloom" if is_bloom else "bitmap"),
+        indptr=pos_set.indptr if is_bloom else None,
+        csr_items=pos_set.items if is_bloom else None,
+        max_degree=pos_set.max_degree if is_bloom else 0,
+    )
+
+    def epoch(rk, ks, lr, uf, itf, ib):
+        enc, p, n_overflow = _sample_pack_grouped_body(
+            rk, ks if shuffle else None, pos_up, bitmap.words, **pack)
+        return (*sgd(enc, p, rk, lr, uf, itf, ib), n_overflow)
+
+    return epoch
+
+
+def no_keys(n: int, device) -> torch.Tensor:
+    """The placeholder of an unshuffled epoch's ``n`` shuffle keys: an epoch
+    program always takes the tensor, and reads it only to shuffle."""
+    return torch.zeros((n,), dtype=torch.int32, device=device)
+
+
 def sgd_epoch_grouped_keyed(
     params: BPRParams,
     rk: torch.Tensor,  # (neg_rounds, 3) int32 round keys
@@ -1225,59 +1375,19 @@ def sgd_epoch_grouped_keyed(
     item_scatter: str = "seq",
     sampler: str = "rounds",
     mesh=None,
-    sgd=None,
 ):
-    """One grouped training epoch on given keys: presample+encode, then the
-    grouped SGD loop. With ``mesh`` every rank presamples the whole epoch
-    (the collision buffer compacts over the whole stream, so a slice cannot
-    be presampled alone) and steps its lanes (parallel/sharded_bpr.py).
-
-    ``sgd`` runs the SGD loop in place of the one made here: the function
-    of :func:`grouped_sgd` for this configuration, or an ops/graphs.py
-    EpochGraph of it (the loop captured as a CUDA graph); the presample
-    stays eager, since its compaction reads a count on the host.
-
-    Returns (params, n_overflow) where n_overflow is a DEVICE scalar of
-    collision-buffer overflows (callers should log when nonzero, reading it
-    at a point that already syncs).
-
-    Caller contract: pos_up is padded to a multiple of batch_size
-    (a power of two), n_real marks the real prefix length, and
-    grouped_path_reject_reason(...) returned None for this configuration.
-    """
-    u_shift = 1 + 2 * num_neg
-    feistel_b = batch_size.bit_length() - 1
-    is_bloom = isinstance(bitmap, PosBloom)
-    if is_bloom and pos_set is None:
-        raise ValueError("bloom membership requires pos_set for exact verify")
-    use_word = _uses_word(bitmap, sampler, num_neg, neg_rounds)
-    enc, p, n_overflow = _sample_pack_grouped_body(
-        rk,
-        ks,
-        pos_up,
-        bitmap.words,
-        n_items=n_items,
-        n_real=n_real,
-        num_neg=num_neg,
-        n_rounds=neg_rounds,
-        wpu=bitmap.words_per_user,
-        u_shift=u_shift,
-        feistel_b=feistel_b,
-        collide_cap=collide_cap,
-        membership="word" if use_word
-        else ("bloom" if is_bloom else "bitmap"),
-        indptr=pos_set.indptr if is_bloom else None,
-        csr_items=pos_set.items if is_bloom else None,
-        max_degree=pos_set.max_degree if is_bloom else 0,
-    )
-    if sgd is None:
-        sgd = grouped_sgd(bitmap, user_lambda, item_lambda, bias_lambda,
-                          use_biases, batch_size, num_neg, n_items,
-                          neg_rounds, item_scatter, sampler, mesh)
+    """One grouped training epoch on given keys: :func:`grouped_epoch`'s
+    function for this configuration, called once. Returns (params,
+    n_overflow), n_overflow a device scalar."""
+    epoch = grouped_epoch(
+        pos_up, bitmap, user_lambda, item_lambda, bias_lambda, n_items,
+        n_real, use_biases, num_neg, neg_rounds, batch_size, collide_cap,
+        ks is not None, pos_set, item_scatter, sampler, mesh)
     uf = params.user_factors
     lr = torch.as_tensor(lr, dtype=uf.dtype, device=uf.device)
-    new_params = BPRParams(*sgd(enc, p, rk, lr, *params))
-    return new_params, n_overflow
+    *new_params, n_overflow = epoch(
+        rk, no_keys(6, uf.device) if ks is None else ks, lr, *params)
+    return BPRParams(*new_params), n_overflow
 
 
 def _uses_word(bitmap, sampler: str, num_neg: int, neg_rounds: int) -> bool:
@@ -1296,9 +1406,9 @@ def grouped_sgd(bitmap, user_lambda: float, item_lambda: float,
     for one configuration, as a function of what changes from epoch to
     epoch: ``sgd(enc, p, rk, lr, uf, itf, ib) -> (uf, itf, ib)``, the
     packed stream, the round keys, the rate as a 0-d tensor and the
-    parameters, updated in place. Its arguments are
-    :func:`sgd_epoch_grouped_keyed`'s. The loop reads no device value on
-    the host, so a CUDA graph (ops/graphs.py) captures all of it."""
+    parameters, updated in place. Its arguments are :func:`grouped_epoch`'s,
+    which runs it after pass 1. The loop reads no device value on the
+    host."""
     use_word = _uses_word(bitmap, sampler, num_neg, neg_rounds)
     tables = _slot_tables(num_neg, neg_rounds, use_word, bitmap.words.device)
 
@@ -1427,7 +1537,7 @@ def _sgd_epoch_scan_packed_impl(
     users_flat: torch.Tensor,
     packed_flat: torch.Tensor,  # (S*B,) pos << 15 | neg
     weights_flat: torch.Tensor,
-    lr: float,
+    lr,  # float, or a 0-d tensor of the factors' dtype on their device
     user_lambda: float,
     item_lambda: float,
     bias_lambda: float,
@@ -1452,6 +1562,41 @@ def _sgd_epoch_scan_packed_impl(
             batch_size=batch_size,
         )
     return params
+
+
+def packed_epoch(
+    tri_ui: torch.Tensor,  # (N, 2) int32 [user, pos_item] rows, N a power of 2
+    bitmap: PosBitmap,
+    n_real: int,
+    user_lambda: float,
+    item_lambda: float,
+    bias_lambda: float,
+    use_biases: bool,
+    batch_size: int,
+    shuffle: bool,
+    mesh=None,
+):
+    """The packed legacy epoch for one configuration as a function of its
+    draws and the parameters: ``epoch(ks, cands, lr, uf, itf, ib) -> (uf,
+    itf, ib)``, the three shuffle keys (read only with ``shuffle``: a
+    placeholder of that shape otherwise), the candidates (neg_rounds, N),
+    the rate as a 0-d tensor and the parameters, updated in place. It is
+    pass 1 (:func:`_sample_pack_impl`) and then every step
+    (:func:`_sgd_epoch_scan_packed_impl`), qmf_tpu's two programs as one;
+    nothing in it reads a device value on the host, so a CUDA graph
+    (ops/graphs.py) captures all of it."""
+
+    def epoch(ks, cands, lr, uf, itf, ib):
+        u, packed, w = _sample_pack_impl(
+            ks if shuffle else None, cands, tri_ui, bitmap.words, n_real,
+            bitmap.words_per_user)
+        _sgd_epoch_scan_packed_impl(
+            BPRParams(uf, itf, ib), u, packed, w, lr, user_lambda,
+            item_lambda, bias_lambda, use_biases=use_biases,
+            batch_size=batch_size, mesh=mesh)
+        return uf, itf, ib
+
+    return epoch
 
 
 def packed_path_reasons(n: int, n_items: int, batch_size: int,
@@ -1501,7 +1646,7 @@ def sgd_epoch_drawn(
     items_flat: torch.Tensor,
     weights_flat: torch.Tensor,
     pos_set: PosSet,
-    lr: float,
+    lr,  # float, or a 0-d tensor of the factors' dtype on their device
     user_lambda: float,
     item_lambda: float,
     bias_lambda: float,
@@ -1518,42 +1663,23 @@ def sgd_epoch_drawn(
 
     When a membership bitmap exists and the item space fits the packing
     bound (n_items <= 2**_PACK_SHIFT), negatives are presampled in one wide
-    pass and packed into the items stream. Otherwise the epoch samples
-    inside each step with the CSR binary search, and logs once which
-    precondition failed.
+    pass and packed into the items stream (:func:`packed_epoch`). Otherwise
+    the epoch samples inside each step with the CSR binary search
+    (:func:`_sgd_epoch_impl`), and logs once which precondition failed.
     """
     n = users_flat.shape[0]
+    uf = params.user_factors
+    lr = torch.as_tensor(lr, dtype=uf.dtype, device=uf.device)
     reasons = packed_path_reasons(
         n, n_items, batch_size, bitmap is not None, n_real)
     if not reasons:
-        u, packed, w = _sample_pack_impl(
-            shuffle_draw,
-            cands,
-            torch.stack([users_flat, items_flat], dim=1),
-            bitmap.words,
-            n_real=n_real,
-            wpu=bitmap.words_per_user,
-        )
-        return _sgd_epoch_scan_packed_impl(
-            params,
-            u,
-            packed,
-            w,
-            lr,
-            user_lambda,
-            item_lambda,
-            bias_lambda,
-            use_biases=use_biases,
-            batch_size=batch_size,
-            mesh=mesh,
-        )
-    reason_key = tuple(reasons)
-    if reason_key not in _fallback_logged:
-        _fallback_logged.add(reason_key)
-        log.info(
-            "BPR epoch falling back to in-step CSR sampling (slower than "
-            "the packed presampled path): %s", "; ".join(reasons)
-        )
+        epoch = packed_epoch(
+            torch.stack([users_flat, items_flat], dim=1), bitmap, n_real,
+            user_lambda, item_lambda, bias_lambda, use_biases, batch_size,
+            shuffle_draw is not None, mesh)
+        keys = no_keys(3, uf.device) if shuffle_draw is None else shuffle_draw
+        return BPRParams(*epoch(keys, cands, lr, *params))
+    log_fallback(reasons)
     # the in-step path still needs batch divisibility (the loop reshapes to
     # (steps, batch_size)): pad with zero-weight no-op rows, matching the
     # engine's own stream padding semantics
@@ -1583,6 +1709,18 @@ def sgd_epoch_drawn(
         batch_size=batch_size,
         mesh=mesh,
     )
+
+
+def log_fallback(reasons) -> None:
+    """Log, once a process for each set of reasons, that a legacy epoch
+    samples inside each step (:func:`packed_path_reasons`)."""
+    reason_key = tuple(reasons)
+    if reason_key not in _fallback_logged:
+        _fallback_logged.add(reason_key)
+        log.info(
+            "BPR epoch falling back to in-step CSR sampling (slower than "
+            "the packed presampled path): %s", "; ".join(reasons)
+        )
 
 
 def sgd_epoch(params: BPRParams, generator: torch.Generator,

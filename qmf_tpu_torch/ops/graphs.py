@@ -9,8 +9,13 @@ one CUDA device. Its first call runs the callable eagerly on a side stream
 that stream into a private memory pool; every later call copies its inputs
 into the graph's static input buffers and replays the graph on the current
 stream. Nothing on the path may read a device value on the host, allocate
-outside PyTorch's allocator, or synchronise: the epochs of both engines hold
-to that.
+outside PyTorch's allocator, or synchronise: the programs of both engines
+hold to that. They are WALS's epoch (``fuse_epoch``, each epoch or the
+whole run), BPR's grouped epoch (pass 1 and the SGD loop) and its packed
+legacy epoch, each one graph, and BPR's legacy epoch with sampling inside
+each step, a graph of one step replayed once a step (:func:`run_steps`).
+What stays eager is what :func:`eager_reasons` names, and the draws of
+BPR's generator, which come before each program.
 
 The kernels' wrappers count their launches in Python, each counter
 registered with ``kernels.register_counter`` (``spd_solve.launches`` and
@@ -33,6 +38,7 @@ import time
 from typing import Callable, List, Optional, Sequence
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from qmf_tpu_torch import kernels
 from qmf_tpu_torch.utils.logging import log
@@ -111,10 +117,11 @@ class EpochGraph:
         self._inputs: List[torch.Tensor] = []
         self._outputs = None
         self._delta: List[int] = []
-        # seconds to record the capture and to end it (instantiation), and
-        # the replays so far
+        # seconds to record the capture and to end it (instantiation), the
+        # captured graph's nodes, and the replays so far
         self.record_s: Optional[float] = None
         self.instantiate_s: Optional[float] = None
+        self.nodes: Optional[int] = None
         self.replays = 0
 
     @property
@@ -162,15 +169,20 @@ class EpochGraph:
             warm = self._fn(*self._inputs)
         current.wait_stream(side)
         before = self._counts()
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the graph is instantiated below, after its nodes are
+        # counted
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         # thread_local: the capture refuses unsafe calls of this thread
         # alone, and leaves other threads' (NCCL's watchdog) alone
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
             outputs = self._fn(*self._inputs)
-            t1 = time.perf_counter()
-        self.instantiate_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        self.nodes = _node_count(graph)
+        t2 = time.perf_counter()
+        graph.instantiate()
+        self.instantiate_s = time.perf_counter() - t2
         self.record_s = t1 - t0
         after = self._counts()
         self._set_counts(before)
@@ -200,3 +212,69 @@ class EpochGraph:
         self._set_counts([c + d for c, d in zip(self._counts(),
                                                 self._delta)])
         return self._outputs
+
+
+def _node_count(graph) -> Optional[int]:
+    """The nodes of a captured graph kept before its instantiation
+    (libcuda's ``cuGraphGetNodes``); None without a graph handle."""
+    raw = graph.raw_cuda_graph()
+    if not raw:
+        return None
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(raw), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned {rc}")
+    return n.value
+
+
+def run_steps(program, inputs: Sequence[torch.Tensor], n: int):
+    """``n`` calls of a step program, ``program(*inputs)`` first: a function
+    (or an :class:`EpochGraph` of one) that updates its inputs in place,
+    its step counter among them, and returns them. A graph's later calls
+    replay on its static buffers, where the first call left the inputs, so
+    they copy nothing. Returns the last call's outputs."""
+    out = program(*inputs)
+    if isinstance(program, EpochGraph):
+        inputs = program.inputs
+    for _ in range(n - 1):
+        out = program(*inputs)
+    return out
+
+
+_aten = torch.ops.aten
+# ops that index with tensors: a bool index is a mask, whose nonzero
+# entries the op counts on the host
+_INDEXING = (_aten.index.Tensor, _aten.index_put.default,
+             _aten.index_put_.default, _aten._index_put_impl_.default)
+
+
+class NoHostReads(TorchDispatchMode):
+    """Raises at the first op that a CUDA graph's capture refuses or gets
+    wrong: one that reads a device value on the host (``.item()``,
+    ``bool()`` of a tensor, ``torch.equal``: aten's ``data_dependent_output``
+    ops, ``_local_scalar_dense`` among them), one whose output's shape
+    depends on the data (``nonzero``, ``repeat_interleave`` by a tensor,
+    indexing by a bool mask: ``dynamic_output_shape``), or one that copies
+    host data in (``torch.tensor`` of Python values: ``lift_fresh``). Run
+    around a body on the CPU, it shows that the body can be captured on a
+    card without one."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        why = None
+        if torch.Tag.data_dependent_output in func.tags:
+            why = "reads a device value on the host"
+        elif func in _INDEXING and any(
+                t is not None and t.dtype in (torch.bool, torch.uint8)
+                for t in args[1]):
+            why = "indexes by a mask, whose entries it counts on the host"
+        elif (torch.Tag.dynamic_output_shape in func.tags
+              and func is not _aten.index.Tensor):
+            why = "gives an output whose shape depends on the data"
+        elif func is _aten.lift_fresh.default:
+            why = "copies host data in"
+        if why is not None:
+            raise RuntimeError(f"{func}: {why}")
+        return func(*args, **(kwargs or {}))

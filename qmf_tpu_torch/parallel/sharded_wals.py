@@ -94,11 +94,14 @@ def iterate_side_sharded(y: torch.Tensor, buckets: ShardedBuckets,
                          chunk_sizes, n_rows: int, alpha: float, lam: float,
                          mesh: Mesh, solver: str = "cholesky",
                          precision: str = "highest", hot=None,
-                         n_fixed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                         n_fixed=None, class_solve: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sharded half-epoch against the whole fixed side ``y`` (its rows
     from ``n_fixed`` on zero padding): the new factors of the ``n_rows``
     rows, padded to ``pad_rows(n_rows, mesh)``, on every rank, and the
-    summed loss. ``chunk_sizes`` are this rank's chunks."""
+    summed loss. ``chunk_sizes`` are this rank's chunks; with
+    ``class_solve=False`` the rank solves each of them as it builds it, into
+    its block of the class, before the class's one all_gather."""
     return als_ops._solve_side(y, buckets.arrays(), chunk_sizes, n_rows,
                                alpha, lam, solver, precision, hot, mesh,
-                               n_fixed)
+                               n_fixed, class_solve)

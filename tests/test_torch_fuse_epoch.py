@@ -307,8 +307,14 @@ class _StandIn:
     compute)."""
 
     class CUDAGraph:
-        def __init__(self):
+        def __init__(self, keep_graph=False):
             self.on_replay = None
+
+        def raw_cuda_graph(self):
+            return 0  # no graph handle: no node count
+
+        def instantiate(self):
+            pass
 
         def replay(self):
             self.on_replay()

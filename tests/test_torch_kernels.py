@@ -560,3 +560,100 @@ def test_uncaptured_solvers_table_holds(cuda, solver):
     else:
         assert found["captured"], found
         assert found["max_abs_err"] <= 1e-3, found
+
+
+def _bpr_engines(cuda, **kw):
+    """(graph engine, eager engine) of one BPR configuration on the card,
+    each trained three epochs from the same seed, under
+    torch.use_deterministic_algorithms: index_add_ then sums duplicate rows
+    in a fixed order (a sort) rather than by atomics, whose order differs
+    from run to run, so an epoch's result does not depend on the run that
+    computed it and a replay can be held to an eager epoch bit for bit."""
+    import numpy as np
+
+    from qmf_tpu_torch.config import BPRConfig
+    from qmf_tpu_torch.data import Dataset
+    from qmf_tpu_torch.models import BPREngine
+
+    rng = np.random.default_rng(0)
+    ds = Dataset(rng.integers(1, 301, 6000), rng.integers(1, 401, 6000),
+                 np.ones(6000))
+    engines = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for graphed in (True, False):
+            eng = BPREngine(BPRConfig(nepochs=3, nfactors=16, init_seed=1,
+                                      **kw), device=cuda)
+            eng.init(ds)
+            if not graphed:
+                eng._program = eng._epoch_body()  # eager on the card
+            eng.optimize()
+            torch.cuda.synchronize()
+            engines.append(eng)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return engines
+
+
+@pytest.mark.parametrize("kw,path", [
+    (dict(neg_sampler="rounds", batch_size=1024), "grouped"),
+    (dict(grouped_epoch=False, batch_size=1024), "packed"),
+    (dict(grouped_epoch=False, batch_size=1000), "instep"),
+], ids=["grouped-rounds", "legacy-packed", "legacy-instep"])
+def test_replayed_bpr_epoch_equals_eager(cuda, kw, path):
+    """BPR's epoch programs on the card (ops/graphs.py): the whole grouped
+    epoch (pass 1 with its fixed collision buffer, then the SGD loop) with
+    the ``rounds`` sampler, the packed legacy epoch, and the in-step legacy
+    epoch as a one-step graph replayed once a step: three epochs, the first
+    the warm-up and capture, equal three eager epochs bit for bit."""
+    from qmf_tpu_torch.ops import graphs
+
+    graph, eager = _bpr_engines(cuda, **kw)
+    assert path == ("grouped" if graph._grouped else "packed"
+                    if graph._legacy_packed() else "instep")
+    program = graph._program
+    assert isinstance(program, graphs.EpochGraph) and program.nodes > 0
+    steps = graph._tri_users.shape[0] // 1000 if path == "instep" else 1
+    assert program.replays == 3 * steps - 1
+    for a, b in zip(graph.params, eager.params):
+        assert torch.equal(a, b)
+    assert graph.overflow_slots == eager.overflow_slots
+
+
+@pytest.mark.parametrize("hot_width", [0, 8])
+def test_class_solve_false_on_the_card_equals_true(cuda, hot_width):
+    """WALS with class_solve=False on the card (chol_solve.cu once a chunk,
+    inside the whole run's CUDA graph) gives class_solve=True's factors
+    bit for bit: the kernel solves each system alone. It launches the
+    kernel once a chunk, True once a class."""
+    import numpy as np
+
+    from qmf_tpu_torch.config import WALSConfig
+    from qmf_tpu_torch.data import Dataset
+    from qmf_tpu_torch.models import WALSEngine
+    from qmf_tpu_torch.ops import graphs
+
+    rng = np.random.default_rng(1)
+    key = np.unique(rng.integers(0, 300 * 200, 9000))
+    ds = Dataset(key // 200 + 1, key % 200 + 1,
+                 rng.integers(1, 11, len(key)) * 0.5)
+    runs = {}
+    for class_solve in (False, True):
+        eng = WALSEngine(WALSConfig(
+            nepochs=3, nfactors=32, batch_rows=64, solver="kernel",
+            hot_width=hot_width, class_solve=class_solve), device=cuda)
+        eng.init(ds)
+        spd_solve.launches = 0
+        eng.optimize()
+        torch.cuda.synchronize()
+        assert isinstance(eng._program, graphs.EpochGraph)
+        runs[class_solve] = (eng, spd_solve.launches)
+    (split, n_split), (whole, n_whole) = runs[False], runs[True]
+    assert torch.equal(split.user_factors, whole.user_factors)
+    assert torch.equal(split.item_factors, whole.item_factors)
+    n_chunks = sum(-(-arr[0].shape[0] // c) for side in ("user", "item")
+                   for arr, c in zip(getattr(split, f"_{side}_classes"),
+                                     getattr(split, f"_{side}_chunks")))
+    n_classes = len(split._user_classes) + len(split._item_classes)
+    assert (n_split, n_whole) == (3 * n_chunks, 3 * n_classes)
+    assert n_chunks > n_classes
