@@ -20,33 +20,40 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    copy alone, the batch-first entry reading the batch-last buffer through
    strides, the plain version and torch.linalg.solve timed in turns, with
    the bound and the systems per block;
-3. the CLI main path at ml100k scale with CLI defaults (k = 30): launch
-   count, factor files, test AUC, and the factors against a plain-cholesky
+3. the CLI main path at ml100k scale with CLI defaults (k = 30): each
+   side's hot width (hot_width "auto"), launch count (one chol_solve a
+   class of the packing at those widths), factor files, test AUC, and the factors against a plain-cholesky
    run on the card; the read and the save through the native library
    (data/native.py), whose reader gives the numpy reader's arrays on both
    files and whose writer the Python writer's bytes on the trained factors;
-4. the WALSEngine at ml20m scale and k = 64, 3 epochs: the pack's kind
-   (device-packed), init's stages and peak memory, and every class's four
+4. the WALSEngine at ml20m scale and k = 64, 3 epochs, with the defaults
+   (so each side at the hot width "auto" resolves, both printed): the
+   pack's kind (device-packed), init's stages and peak memory, and every class's four
    tensors against a host pack of the same data, element for element, with
    both packs' seconds; epoch times and losses, AUC, launch count (and
    launches per epoch), peak memory; then
    the kernel against the plain version on that run's largest width class;
    then (4p) the split path's user half-epoch under torch.profiler: device
-   ms, chol_solve_kernel's time, the largest kernels by device time;
+   ms, chol_solve_kernel's time, the largest kernels by device time.
+   Phases 5-7 time the kernels on phase 4's data packed at H = 0 on both
+   sides (phase 4's engine where "auto" resolved 0, else the same data
+   packed again at H = 0 holding its trained factors);
 5. the build+solve kernel against its plain version, bf16 and f32 streams,
    without and with the hot head, k in {8, 30, 64} x D in {8, 320, 512} x
    N in {1, 13, 300}, plus wide streams split over blocks, (N, D) in
    {(1, 4096), (8, 32768)}; then the kernel, its plain version and the
    split path's build + chol_solve timed on phase 4's largest user class
    and on its widest item class;
-6. solver="fused": the CLI at ml100k (the variant without the hot head),
+6. solver="fused": the CLI at ml100k (hot_width "auto": build_solve's
+   launches of each variant, one a chunk, the hot one on a side above 0),
    then WALSEngine at ml20m, k = 64, with hot_width = 1024 on phase 4's
    data, 3 epochs: init's stages, epoch times against phase 4's, losses,
    AUC within 2e-3 of phase 4's, launch counts, peak memory; then the hot
    variant against
    its plain version on that run's largest user class, checked and timed;
    then each item class of the fused+hot path, and the user and item
-   half-epochs of the split, fused and fused+hot paths, timed in turns;
+   half-epochs of the split and fused paths at H = 0 and of fused+hot,
+   timed in turns;
 7. the gather kernels (vec, warp, tile, fill) against their plain
    version, bit for bit: bf16/f32/f64 x k in {1, 3, 30, 64, 65, 128} x R in
    {1, 255, 513, 2^20} x int32/int64 indices, fill with indices in
@@ -99,7 +106,8 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    world 1 with phase 9d's configuration, one warm-up and one timed epoch,
    updates/s beside 9d's, then one epoch under torch.profiler as 9p; (d)
    the wals CLI under torchrun's environment at world 1, --solver=fused
-   on phase 3's files: build_solve launches, AUC against phase 6's CLI run.
+   on phase 3's files: each build_solve variant's launches against phase
+   6's CLI run's, AUC against that run's.
    Then the launches of each kernel on the sharded paths.
 11. the control plane (qmf_tpu_torch/distributed) through its three CLIs
    as subprocesses: (a) phase 4's ml20m split written as a ratings file, a
@@ -112,8 +120,9 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    4's 3,000 test users within 2e-3 of phase 4's; (b)
    wals_scheduler --backend=gloo --device=cuda:0 and one wals_labor on
    phase 3's ml100k files, two ranks sharing the card: a float32 "fused"
-   task (build_solve launches on both ranks, AUC within 2e-3 of phase 6's
-   CLI run) and a float64 "auto" task within 1e-9 of one device; (c) that
+   task (each rank's hot widths equal to one device's, and its launches of
+   each build_solve variant one a chunk of its share, AUC within 2e-3 of
+   phase 6's CLI run) and a float64 "auto" task within 1e-9 of one device; (c) that
    float64 task again with the labor's epochs stretched and its worker
    killed after its first epoch: two attempts, the second resumed from the
    checkpoint, within 1e-9 of one device; (d) one ml100k epoch under
@@ -159,8 +168,17 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    capture seconds, nodes. In each, the replay is held bit for bit to the
    eager epoch under torch.use_deterministic_algorithms (index_add_'s
    default atomics sum duplicate rows in the order the card runs them).
+14. hot_width "auto" (ops/hot.py's rule with its H100 constants), right
+   after 13d on phase 4's data: the fused build at "auto", 3 epochs (each
+   build_solve variant's launches, test AUC within 2e-3 of phase 4's);
+   then for the split build (phase 4's widths) and the fused one, each
+   side: auto's pick, and the side's half-epoch replayed as a CUDA graph
+   (tools/hot_micro.py: CUDA events, median of 5, the widths in turns) at
+   H = 0, at the pick and at its neighbouring candidates, each beside the
+   rule's modeled build ms; the pick's ratio to H = 0 (at most 1.03) and
+   to the fastest width timed.
 
-Phases 3, 4, 6, 10a, 10d and 11a run with fuse_epoch=True (the default):
+Phases 3, 4, 6, 10a, 10d, 11a and 14 run with fuse_epoch=True (the default):
 on the card each epoch is a replay of a captured graph, and the launch
 counts include the replays (ops/graphs.py keeps the counters true).
 
@@ -543,19 +561,42 @@ def _split(users, items, values, seed=SEED):
             Dataset(users[test], items[test], values[test]))
 
 
-def _n_classes(dataset, cfg) -> int:
-    """Width classes of both sides, packed as WALSEngine.init packs them."""
-    from qmf_tpu_torch.data import IdIndex
-    from qmf_tpu_torch.ops.packing import pack_width_classes
+def _engine_launches(engine) -> dict:
+    """Launches of each kernel one epoch of an initialised engine makes:
+    chol_solve once a class on the split path; on the fused path one
+    build_solve call a chunk, of the hot variant on a side whose hot width
+    is above 0."""
+    from qmf_tpu_torch.ops import als_ops
 
-    _, rows = IdIndex.from_sorted_ids_with_lookup(dataset.user_ids)
-    _, cols = IdIndex.from_sorted_ids_with_lookup(dataset.item_ids)
-    return sum(
-        len(pack_width_classes(r, c, dataset.values, int(r.max()) + 1,
-                               cfg.batch_rows, width_grid=cfg.width_grid,
-                               max_classes=cfg.max_width_classes))
-        for r, c in ((rows, cols), (cols, rows))
-    )
+    counts = dict.fromkeys(("chol_solve", "build_solve", "build_solve_hot"),
+                           0)
+    for side in ("user", "item"):
+        classes, chunks, hot, _, _ = _side(engine, side)
+        if engine._solver != "fused":
+            counts["chol_solve"] += len(classes)
+            continue
+        key = "build_solve" if hot is None else "build_solve_hot"
+        counts[key] += sum(len(als_ops._chunks(c[1].shape[0], ch))
+                           for c, ch in zip(classes, chunks))
+    return counts
+
+
+def _path_launches(dataset, cfg, device: str = "cuda",
+                   world: int = 1) -> tuple:
+    """(:func:`_engine_launches` of an engine of ``cfg`` on ``dataset``,
+    each side's hot width), the engine packed as the path's own packs, its
+    widths resolved on ``device`` as the path resolves them (hot_width
+    "auto": the rule of ops/hot.py). ``world`` packs as a sharded engine of
+    that many ranks does, each of which launches as many."""
+    from qmf_tpu_torch.models import WALSEngine
+
+    class Packed(WALSEngine):
+        def _row_multiple(self) -> int:
+            return 8 * world
+
+    engine = Packed(cfg, device=device)
+    engine.init(dataset)
+    return _engine_launches(engine), engine.hot_widths
 
 
 def _auc_of_files(user_path, item_path, test, device,
@@ -597,7 +638,8 @@ def cli_path(preset: str = "ml100k", device: str = "cuda",
     t0 = time.time()
     train, test = _split(*generate(**PRESETS[preset], seed=SEED))
     cfg = WALSConfig()  # the CLI's defaults
-    expect = _n_classes(train, cfg) * cfg.nepochs
+    per_epoch, widths = _path_launches(train, cfg, device)
+    expect = per_epoch["chol_solve"] * cfg.nepochs
     with (tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_")
           if out_dir is None else contextlib.nullcontext(out_dir)) as tmp:
         paths = {n: os.path.join(tmp, n) for n in
@@ -645,7 +687,8 @@ def cli_path(preset: str = "ml100k", device: str = "cuda",
     write_same = _native_write_parity(plain)
     torch.cuda.empty_cache()
     _line("3 cli", t0, preset=preset, ratings=len(train),
-          launches=launches, expected=expect, test_auc=auc,
+          hot_widths=widths, launches=launches, expected=expect,
+          test_auc=auc,
           max_abs_factor_diff_vs_cholesky=diff, io_path=io_path,
           native_read_equal_to_numpy=read_same,
           native_write_bytes_equal_to_python=write_same)
@@ -767,7 +810,8 @@ def model_scale(data, t_data: float, device: str = "cuda",
         raise AssertionError(f"largest class: kernel vs plain normwise "
                              f"error {scaled} (max abs {err}, max|x| {scale})")
     _line("4 ml20m", t0, users=engine.nusers, items=engine.nitems,
-          ratings=len(train), k=K_MAIN, data_s=round(t_data, 3),
+          ratings=len(train), k=K_MAIN, hot_widths=engine.hot_widths,
+          data_s=round(t_data, 3),
           init_s=round(t_init, 3), pack=engine._pack_kind,
           init_stages=_stages(engine), init_peak_bytes=init_peak,
           device_pack_s=_pack_s(engine._init_stages),
@@ -783,7 +827,23 @@ def model_scale(data, t_data: float, device: str = "cuda",
           class_max_abs_x=scale)
     return {"launches": launches, "max_abs_err": err, "engine": engine,
             "auc": auc, "epoch_s": [dt for _, _, dt, _ in epochs],
-            "epochs": epochs}
+            "epochs": epochs, "hot_widths": dict(engine.hot_widths)}
+
+
+def unsplit_engine(engine, data, device: str = "cuda"):
+    """Phase 4's engine with both hot widths at 0: ``engine`` itself where
+    hot_width "auto" resolved 0 on both sides, else its configuration
+    packed again at H = 0 (tools/hot_micro.forced_engine) holding its
+    trained factors. Phases 5-7 time the kernels on its classes, as every
+    run before hot_width "auto" did."""
+    from qmf_tpu_torch.tools import hot_micro
+
+    if not any(engine.hot_widths.values()):
+        return engine
+    h0 = hot_micro.forced_engine(data[0], engine.config,
+                                 {"user": 0, "item": 0}, device)
+    h0.load_factors(engine.user_factors, engine.item_factors)
+    return h0
 
 
 def _program_kind(engine) -> str:
@@ -1005,27 +1065,11 @@ def fused_kernel_check(split_engine, device: str = "cuda") -> dict:
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
-def _n_chunks(dataset, cfg) -> int:
-    """Build chunks of both sides, packed as WALSEngine.init packs them
-    without the hot split: one fused launch each."""
-    from qmf_tpu_torch.data import IdIndex
-    from qmf_tpu_torch.ops.packing import chunks_for_classes, pack_width_classes
-
-    _, rows = IdIndex.from_sorted_ids_with_lookup(dataset.user_ids)
-    _, cols = IdIndex.from_sorted_ids_with_lookup(dataset.item_ids)
-    total = 0
-    for r, c in ((rows, cols), (cols, rows)):
-        classes = pack_width_classes(
-            r, c, dataset.values, int(r.max()) + 1, cfg.batch_rows,
-            width_grid=cfg.width_grid, max_classes=cfg.max_width_classes)
-        total += sum(-(-cls.shape[0] // ch) for cls, ch in
-                     zip(classes, chunks_for_classes(classes, cfg.batch_rows)))
-    return total
-
-
 def _cli_fused(preset: str = "ml100k", device: str = "cuda") -> tuple:
-    """The CLI with --solver=fused (hot_width "auto" is 0): the variant
-    without the hot head. Returns (launches, test AUC)."""
+    """The CLI with --solver=fused: each side at the width hot_width
+    "auto" resolves, so build_solve's two variants launch once a chunk
+    each, the hot one on a side above 0. Returns (launches of each
+    variant, their expected counts an epoch, the widths, test AUC)."""
     from benchmarks.datagen import PRESETS, generate, write_ratings
     from qmf_tpu_torch import WALSConfig
     from qmf_tpu_torch.cli import wals as cli
@@ -1033,7 +1077,9 @@ def _cli_fused(preset: str = "ml100k", device: str = "cuda") -> tuple:
 
     train, test = _split(*generate(**PRESETS[preset], seed=SEED))
     cfg = WALSConfig(solver="fused")
-    expect = _n_chunks(train, cfg) * cfg.nepochs
+    per_epoch, widths = _path_launches(train, cfg, device)
+    expect = (per_epoch["build_solve"] * cfg.nepochs,
+              per_epoch["build_solve_hot"] * cfg.nepochs, 0)
     with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as tmp:
         paths = {n: os.path.join(tmp, n) for n in
                  ("train.txt", "test.txt", "user.dat", "item.dat")}
@@ -1055,13 +1101,14 @@ def _cli_fused(preset: str = "ml100k", device: str = "cuda") -> tuple:
             raise AssertionError(f"wals CLI --solver=fused returned {rc}")
         auc = _auc_of_files(paths["user.dat"], paths["item.dat"], test,
                             device)[0]
-    if counts != (expect, 0, 0):
+    if counts != expect or not sum(counts) > 0:
         raise AssertionError(f"CLI --solver=fused launches (build_solve, "
                              f"build_solve_hot, chol_solve) = {counts}, "
-                             f"expected ({expect}, 0, 0)")
+                             f"expected {expect} at widths {widths}")
     if not auc > 0.5:
         raise AssertionError(f"CLI --solver=fused test AUC {auc} <= 0.5")
-    return counts[0], auc
+    return ({"build_solve": counts[0], "build_solve_hot": counts[1]},
+            per_epoch, widths, auc)
 
 
 def _half_epoch_ms(paths: dict) -> dict:
@@ -1105,10 +1152,11 @@ def _item_class_ms(engine) -> list:
 
 def fused_path(data, split: dict, split_engine, device: str = "cuda",
                nepochs: int = 3) -> dict:
-    """Phase 6: solver="fused" through the CLI (ml100k, no hot head), then
-    WALSEngine at ml20m, k = 64, hot_width = 1024, on phase 4's data; then
-    its item classes, and the half-epochs of the split path and the fused
-    path without the hot head (both on phase 4's engine) and with it."""
+    """Phase 6: solver="fused" through the CLI (ml100k, hot_width "auto"),
+    then WALSEngine at ml20m, k = 64, hot_width = 1024, on phase 4's data;
+    then its item classes, and the half-epochs of the split path and the
+    fused path without the hot head (both on ``split_engine``, phase 4's
+    data at H = 0) and with it."""
     import numpy as np
     import torch
 
@@ -1118,7 +1166,8 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
     from qmf_tpu_torch.ops import build_solve, spd_solve
 
     t0 = time.time()
-    cli_launches, cli_auc = _cli_fused(device=device)
+    cli_launches, cli_expect, cli_widths, cli_auc = _cli_fused(
+        device=device)
     train, test = data
     me = MetricsEngine(MetricsConfig(num_test_users=3000, seed=SEED))
     me.add_test_avg_metric("auc")
@@ -1168,11 +1217,12 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
     })
     bound_ms, bound_by = _bs_bound(args)
     item_classes = _item_class_ms(engine)
-    half = _half_epoch_ms({"split": (split_engine, "kernel", None),
-                           "fused": (split_engine, "fused", None),
+    half = _half_epoch_ms({"split_h0": (split_engine, "kernel", None),
+                           "fused_h0": (split_engine, "fused", None),
                            "fused_hot": (engine, "fused", None)})
-    _line("6 fused", t0, cli_preset="ml100k", cli_launches=cli_launches,
-          cli_test_auc=cli_auc, users=engine.nusers, items=engine.nitems,
+    _line("6 fused", t0, cli_preset="ml100k", cli_hot_widths=cli_widths,
+          cli_launches=cli_launches, cli_test_auc=cli_auc,
+          users=engine.nusers, items=engine.nitems,
           k=K_MAIN, hot_width=HOT_WIDTH, init_s=round(t_init, 3),
           pack=engine._pack_kind, init_stages=_stages(engine),
           epoch_program=_program_kind(engine),
@@ -1190,7 +1240,7 @@ def fused_path(data, split: dict, split_engine, device: str = "cuda",
           **{f"half_epoch_ms_{name}": round(t, 4)
              for name, t in half.items()})
     return {"launches": counts[1], "cli_launches": cli_launches,
-            "cli_auc": cli_auc, "max_abs_err": err, "ms": ms["kernel"],
+            "cli_expect": cli_expect, "cli_auc": cli_auc, "max_abs_err": err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "epochs": epochs, "engine": engine}
 
@@ -2221,11 +2271,18 @@ def sharded(data, split: dict, fused: dict, bpr: dict, cli_files: dict,
         cli_auc, *_ = _auc_of_files(out["user.dat"], out["item.dat"],
                                     read_dataset(cli_files["test.txt"]),
                                     device)
-    n_cli = build_solve.launches
-    launches["build_solve"] += n_cli
-    if rc != 0 or not n_cli > 0 or abs(cli_auc - fused["cli_auc"]) > 2e-3:
-        raise AssertionError(f"10d: rc {rc}, {n_cli} build_solve launches, "
-                             f"AUC {cli_auc} vs {fused['cli_auc']}")
+    # phase 3's files are phase 6's CLI data: the same widths and chunks
+    n_cli = {"build_solve": build_solve.launches,
+             "build_solve_hot": build_solve.launches_hot}
+    expect = {k: n * WALSConfig().nepochs
+              for k, n in fused["cli_expect"].items() if k in n_cli}
+    for name, n in n_cli.items():
+        launches[name] += n
+    if rc != 0 or n_cli != expect or not sum(n_cli.values()) > 0 \
+            or abs(cli_auc - fused["cli_auc"]) > 2e-3:
+        raise AssertionError(f"10d: rc {rc}, launches {n_cli}, expected "
+                             f"{expect}, AUC {cli_auc} vs "
+                             f"{fused['cli_auc']}")
     _line("10d cli torchrun w1", t0, solver="fused", launches=n_cli,
           test_auc=cli_auc, single_device_test_auc=fused["cli_auc"])
     return launches
@@ -2480,8 +2537,11 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
     from qmf_tpu_torch.ops import spd_solve
     from qmf_tpu_torch.utils.tracing import trace
 
+    from qmf_tpu_torch.distributed.taskdef import TaskDef
+    from qmf_tpu_torch.distributed.worker import task_config
+
     train, test = data
-    launches = {"chol_solve": 0, "build_solve": 0}
+    launches = {"chol_solve": 0, "build_solve": 0, "build_solve_hot": 0}
     torch.cuda.empty_cache()
 
     # 11a: ml20m through wals_submit, against the wals CLI
@@ -2530,6 +2590,7 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
             f"normwise {err}, AUC {auc} vs phase 4's {split['auc']}")
     launches["chol_solve"] += n
     _line("11a control plane ml20m", t0, ratings=len(train), k=K_MAIN,
+          worker_hot_widths=res["hot_widths"],
           write_ratings_s=round(write_s, 3), task_s=round(
               entry["finished"] - entry["started"], 3),
           worker_wall_s=res["wall_s"], worker_stages=res["stages"],
@@ -2582,21 +2643,33 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
                                   device)[0]
         rank_launches = {name: [r["launches"] for r in pair]
                          for name, pair in runs.items()}
+        # each rank launches once a chunk of its share, as a single engine
+        # packed for two ranks does, at the widths one device resolves
+        td = TaskDef(solver="fused")
+        per_epoch, widths = _path_launches(
+            read_dataset(cli_files["train.txt"]), task_config(td), device,
+            world=2)
+        expect = {k: per_epoch[k] * td.nepochs
+                  for k in ("build_solve", "build_solve_hot")}
         ok = (all(r["attempts"] == 1 and r["labors"] == [peer]
                   and r["num_processes"] == 2 and r["backend"] == "gloo"
                   for r, _ in runs.values())
-              and all(la["build_solve"] > 0
+              and all(r["hot_widths"] == widths for r in runs["fused"])
+              and all({k: la[k] for k in expect} == expect
                       for la in rank_launches["fused"])
               and all(la["chol_solve"] > 0 for la in rank_launches["f64"])
               and abs(fused_auc - fused["cli_auc"]) <= 2e-3
               and diff <= 1e-9)
         if not ok:
             raise AssertionError(f"11b: {runs}, AUC {fused_auc} vs "
-                                 f"{fused['cli_auc']}, f64 {diff}")
-        for name, key in (("fused", "build_solve"), ("f64", "chol_solve")):
-            launches[key] += sum(la[key] for la in rank_launches[name])
+                                 f"{fused['cli_auc']}, f64 {diff}, "
+                                 f"expected fused launches a rank {expect} "
+                                 f"at widths {widths}")
+        for name, keys in (("fused", expect), ("f64", ("chol_solve",))):
+            for key in keys:
+                launches[key] += sum(la[key] for la in rank_launches[name])
         _line("11b control plane gloo w2", t0, labor=peer,
-              device=runs["f64"][0]["device"],
+              device=runs["f64"][0]["device"], fused_hot_widths=widths,
               launches_by_rank=rank_launches,
               fused_test_auc=fused_auc,
               phase6_cli_test_auc=fused["cli_auc"],
@@ -3128,6 +3201,110 @@ def class_solve_check(engine, nepochs: int = 2) -> dict:
     return {"launches": launches}
 
 
+# Phase 14: the most the pick of hot_width "auto" may lose to H = 0 on a
+# side, and the half-epochs timed of each width.
+HOT_PICK_SLACK, HOT_REPS = 1.03, 5
+
+
+def hot_width_check(data, split: dict, engines: list, device: str = "cuda",
+                    nepochs: int = 3) -> dict:
+    """Phase 14: hot_width "auto" (ops/hot.py's rule, H100 constants) on
+    phase 4's data at k = 64. The split build's widths are phase 4's
+    engine's; the fused build's come from a ``nepochs`` run of solver
+    "fused" at "auto", whose test AUC must be within 2e-3 of phase 4's and
+    whose build_solve launches of each variant are one a chunk of a side
+    at H = 0 or above. Then, for each build and side, the half-epoch
+    replayed as a CUDA graph (tools/hot_micro.half_epoch_ms: CUDA events,
+    the median of HOT_REPS, the widths taking turns) at H = 0, at the pick
+    and at its neighbouring candidates, each beside the rule's modeled
+    build ms; it fails where the pick is slower than H = 0 by more than
+    HOT_PICK_SLACK. ``engines`` hold phase 4's data in its configuration
+    at the widths they were packed with, and serve those widths; the other
+    widths are packed here. Returns the fused run's launches."""
+    import torch
+
+    from qmf_tpu_torch import MetricsConfig, WALSConfig
+    from qmf_tpu_torch.metrics import MetricsEngine
+    from qmf_tpu_torch.models import WALSEngine
+    from qmf_tpu_torch.ops import build_solve
+    from qmf_tpu_torch.ops import hot as hot_ops
+    from qmf_tpu_torch.tools import hot_micro
+
+    t0 = time.time()
+    train, test = data
+    split_engine = engines[0]
+    me = MetricsEngine(MetricsConfig(num_test_users=3000, seed=SEED))
+    me.add_test_avg_metric("auc")
+    cfg = WALSConfig(nfactors=K_MAIN, nepochs=nepochs,
+                     matmul_precision="default", batch_rows=8192,
+                     solver="fused")
+    fused = WALSEngine(cfg, me, device=device)
+    fused.init(train)
+    fused.init_test(test)
+    expect = {k: n * nepochs for k, n in _engine_launches(fused).items()}
+    build_solve.launches = build_solve.launches_hot = 0
+    fused.optimize()
+    launches = {"chol_solve": 0, "build_solve": build_solve.launches,
+                "build_solve_hot": build_solve.launches_hot}
+    auc = me.last("test_avg_auc")[1]
+    if launches != expect or not abs(auc - split["auc"]) <= 2e-3:
+        raise AssertionError(f"14: fused at auto widths {fused.hot_widths}: "
+                             f"launches {launches}, expected {expect}; AUC "
+                             f"{auc} vs phase 4's {split['auc']}")
+    picks = {"split": dict(split_engine.hot_widths),
+             "fused": dict(fused.hot_widths)}
+    seconds = {"fused_run": time.time() - t0}
+    demand = hot_micro.side_demand(train)
+    widths = {}
+    for side in hot_micro.SIDES:
+        cands = hot_micro.candidates(*demand[side])
+        near = {0}
+        for pick in (p[side] for p in picks.values()):
+            i = cands.index(pick)
+            near.update(cands[max(i - 1, 0):i + 2])
+        widths[side] = sorted(near)
+    pool = {side: {} for side in hot_micro.SIDES}
+    for engine in engines + [fused]:
+        for side, h in engine.hot_widths.items():
+            pool[side].setdefault(h, engine)
+    missing = {side: [h for h in widths[side] if h not in pool[side]]
+               for side in hot_micro.SIDES}
+    seconds["demand"] = time.time() - t0 - sum(seconds.values())
+    if any(missing.values()):
+        for side, at in hot_micro.engines_at(train, cfg, missing,
+                                             device).items():
+            pool[side].update(at)
+    seconds["pack"] = time.time() - t0 - sum(seconds.values())
+    y = {"user": split_engine.item_factors,
+         "item": split_engine.user_factors[: split_engine.nusers]}
+    table, vs_h0, vs_fastest = {}, {}, {}
+    for build in hot_micro.SOLVERS:
+        for side in hot_micro.SIDES:
+            ms = hot_micro.half_epoch_ms(
+                {h: pool[side][h] for h in widths[side]}, side, build,
+                y[side], HOT_REPS)
+            pick = picks[build][side]
+            name = f"{build}_{side}"
+            table[name] = {h: (round(t, 4), round(hot_ops.modeled_ms(
+                *demand[side], K_MAIN, h), 4)) for h, t in ms.items()}
+            vs_h0[name] = round(ms[pick] / ms[0], 4)
+            vs_fastest[name] = round(ms[pick] / min(ms.values()), 4)
+            if not ms[pick] <= HOT_PICK_SLACK * ms[0]:
+                raise AssertionError(
+                    f"14 {name}: auto's pick H={pick} takes {ms[pick]} ms, "
+                    f"H=0 {ms[0]} ms (more than {HOT_PICK_SLACK}x): {table}")
+    del pool, fused
+    torch.cuda.empty_cache()
+    seconds["timing"] = time.time() - t0 - sum(seconds.values())
+    _line("14 hot width", t0, picks=picks, widths_timed=widths,
+          widths_packed_here=missing,
+          seconds={k: round(v, 3) for k, v in seconds.items()},
+          half_epoch_ms_and_model_ms=table, pick_over_h0=vs_h0,
+          pick_over_fastest=vs_fastest, fused_launches=launches,
+          fused_test_auc=auc, phase4_test_auc=split["auc"])
+    return launches
+
+
 @contextlib.contextmanager
 def _deterministic():
     """torch.use_deterministic_algorithms for a comparison: index_add_ then
@@ -3445,15 +3622,19 @@ def main() -> int:
         main_path = model_scale(data, t_data)
         split_engine = main_path.pop("engine")
         profile_split_user(split_engine)
-        fused_timing = fused_kernel_check(split_engine)
+        # phases 5-7 time the kernels on phase 4's data at H = 0
+        h0_engine = unsplit_engine(split_engine, data)
+        fused_timing = fused_kernel_check(h0_engine)
         torch.cuda.empty_cache()
-        fused = fused_path(data, main_path, split_engine)
+        fused = fused_path(data, main_path, h0_engine)
         fused_engine = fused.pop("engine")
-        gathers = gather_check(split_engine)
+        gathers = gather_check(h0_engine)
         serving(cli_files, data, split_engine)
         graph_epochs({"split": split_engine, "fused_hot": fused_engine})
         class_solve = class_solve_check(split_engine)
-        del split_engine, fused_engine
+        hot = hot_width_check(data, main_path,
+                              [split_engine, h0_engine, fused_engine])
+        del split_engine, fused_engine, h0_engine
         torch.cuda.empty_cache()
         bpr_check()
         bpr_cli(cli_files)
@@ -3472,6 +3653,12 @@ def main() -> int:
               **control_plane(data, main_path, fused, cli_files, tmp))
     print(f"phase total: ok seconds={time.time() - t_start:.1f}", flush=True)
     source = "qmf_tpu_torch/csrc/build_solve.cu"
+    # build_solve without the hot head runs on the sides where hot_width
+    # "auto" resolves 0: phase 6's CLI and phase 14's fused run
+    unsplit = fused["cli_launches"]["build_solve"] + hot["build_solve"]
+    if not unsplit > 0:
+        raise AssertionError("no path launched build_solve without the hot "
+                             "head: auto resolved every side above 0")
 
     def gather_entry(name, replaces, shape):
         at = gathers[shape]
@@ -3518,7 +3705,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "qmf_tpu/ops/pallas_solve.py:502",
-        "launches": fused["cli_launches"],
+        "launches": unsplit,
         "max_abs_err": fused_timing["max_abs_err"],
         "ms": fused_timing["ms"],
         "plain_ms": fused_timing["plain_ms"],

@@ -93,10 +93,11 @@ class WALSConfig:
     min_class_nnz_frac: float = 0.0
     # Hot/cold split build (ops/hot.py): the entries of each side's H hottest
     # fixed-side columns leave the gathered stream and enter A and b through
-    # dense per-row weights (W_a @ Z, W_b @ y_hot). An int forces that H on
-    # both sides; 0 disables. "auto" resolves to 0 in the port: qmf_tpu's
-    # cost model was fitted on a TPU, and no H100 measurement shows yet that
-    # the split pays (ROADMAP.md).
+    # dense per-row weights (W_a @ Z, W_b @ y_hot). "auto" picks H for each
+    # side by itself, as qmf_tpu does, through ops/hot.py's cost model with
+    # its H100 constants (tools/hot_micro.py fits them), on float32 on a
+    # CUDA device, and is 0 on the CPU and in float64. An int forces that H
+    # on both sides; 0 disables.
     hot_width: int | str = "auto"
     # Build the width classes on the device (ops/device_pack.py): the COO
     # goes to the card once and is sorted and gathered there, instead of

@@ -221,6 +221,7 @@ def run_worker(
         "device": str(mesh.device),
         "backend": mesh.backend,
         "solver": engine._solver,
+        "hot_widths": engine.hot_widths,
         "launches": launches,
         "losses": losses,
         "epoch_s": [round(s, 4) for s in epoch_s],

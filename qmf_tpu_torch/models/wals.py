@@ -28,7 +28,10 @@
   launch per chunk.
 - ``hot_width`` > 0 splits each side's H hottest fixed-side columns out of
   the gathered stream into static per-row weights (ops/hot.py), built once
-  here; "auto" resolves to 0 in the port.
+  here. "auto" picks H for each side by itself through ops/hot.py's cost
+  model with its H100 constants, on float32 on a CUDA device (0 elsewhere,
+  as qmf_tpu resolves it to 0 on the CPU and in float64); an int forces one
+  H on both sides. ``hot_widths`` keeps both.
 - ``init``'s placement hooks (``_row_multiple``, ``_place_side``,
   ``_install_factors``) and the checkpoint pair (``_checkpoint_arrays``,
   ``_restore_factors``) are what parallel/engine.py's ShardedWALSEngine
@@ -99,6 +102,8 @@ class WALSEngine(Engine):
         self._user_hot: Optional[HotState] = None
         self._item_hot: Optional[HotState] = None
         self._solver: Optional[str] = None
+        # each side's resolved hot width ("user", "item"), set by init
+        self.hot_widths: dict = {}
         self._init_stages: dict = {}  # stage -> seconds (observability)
         self._pack_kind: Optional[str] = None  # "device-packed" / "host-packed"
         self._ckpt_dir: Optional[str] = None
@@ -151,12 +156,29 @@ class WALSEngine(Engine):
             return self.dtype == torch.float32 and self.device.type == "cuda"
         return dp
 
-    def _resolve_hot_width(self) -> int:
-        """The hot_width knob for one side's build (0 = no split). "auto"
-        is 0 in the port: qmf_tpu's cost model (ops/hot.py) was fitted on
-        a TPU, and no H100 measurement shows yet that the split pays."""
+    def _auto_hot(self) -> bool:
+        """Whether hot_width="auto" asks ops/hot.py's rule: on float32 on a
+        CUDA device (qmf_tpu: float32 on a backend other than the CPU);
+        elsewhere "auto" is 0."""
+        return (self.config.hot_width == "auto"
+                and self.dtype == torch.float32
+                and self.device.type == "cuda")
+
+    def _resolve_hot_width(self, col_degrees: np.ndarray,
+                           n_build_rows: int) -> int:
+        """Resolve the hot_width knob for one side's build (0 = no split),
+        as qmf_tpu does (qmf_tpu/models/wals.py:121-133): "auto" is
+        ops/hot.py's rule, with the H100 constants, on the fixed side's
+        column degrees and the count of rows the side builds, where
+        :meth:`_auto_hot` holds, and 0 elsewhere; an int is that width."""
         hw = self.config.hot_width
-        return 0 if hw == "auto" else int(hw)
+        if hw != "auto":
+            return int(hw)
+        if not self._auto_hot():
+            return 0
+        return hot_ops.auto_hot_width(
+            col_degrees, n_build_rows, self.config.nfactors,
+            store_bytes=self._hot_store_dtype().itemsize)
 
     def _hot_store_dtype(self) -> torch.dtype:
         """Storage dtype of the static hot weights W_a/W_b: bf16 when the
@@ -325,7 +347,20 @@ class WALSEngine(Engine):
                    for a in (rows, cols, dataset.values)]
             coo[2] = coo[2].to(self.dtype)
             t = self._stage("copy", t)
-        h_user = h_item = self._resolve_hot_width()
+        # each side by itself, from the fixed side's degrees and the count
+        # of rows it builds (qmf_tpu models/wals.py:298-299)
+        demand = {"user": (deg_i, int((deg_u > 0).sum())),
+                  "item": (deg_u, int((deg_i > 0).sum()))}
+        self.hot_widths = {side: self._resolve_hot_width(*demand[side])
+                           for side in ("user", "item")}
+        h_user, h_item = self.hot_widths["user"], self.hot_widths["item"]
+        if self._auto_hot():
+            log.info("hot_width auto: %s", ", ".join(
+                "%s H=%d (modeled build ms %.3f, at H=0 %.3f)" % (
+                    side, h, *(hot_ops.modeled_ms(*demand[side],
+                                                  cfg.nfactors, w)
+                               for w in (h, 0)))
+                for side, h in self.hot_widths.items()))
         sides = {}
         for side, r, c, n, n_cols, deg_r, deg_c, h in (
             ("user", rows, cols, self.nusers, self.nitems, deg_u, deg_i,

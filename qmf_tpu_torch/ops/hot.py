@@ -24,6 +24,16 @@ exact contribution, summed in another order than the reference's
 per-signal accumulation (qmf/wals/WALSEngine.cpp:266-310). The fused
 build+solve kernel (ops/build_solve.py) adds the same terms in-kernel.
 
+H is chosen for each side by :func:`auto_hot_width`, qmf_tpu's cost model in
+qmf_tpu's form: the modeled build time of H is the cold stream's gathered
+rows at ``gather_ns_per_row`` each plus the hot head's GEMM at
+``gemm_flops``, and the candidate of least time wins (0 where none beats
+the unsplit build or W would pass its memory budget). Its two constants are
+the card's, not the TPU's: fitted on an H100 by
+``python -m qmf_tpu_torch.tools.hot_micro``, which times the half-epochs of
+both builds (split and fused) at each candidate H and fits the model's
+regressors (:func:`cost_terms`) by least squares.
+
 The numpy helpers are copies of qmf_tpu's (importing qmf_tpu.ops.hot would
 import jax); ``build_hot_classes`` is the torch port of its device scatter.
 """
@@ -35,18 +45,22 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-# Cost-model constants for auto hot-width selection, copied from qmf_tpu.
-# They were fitted on a TPU v5e (benchmarks/gather_micro.py,
-# benchmarks/hot_micro.py): per-gathered-row issue cost and effective bf16
-# GEMM throughput of the (N, H) @ (H, k^2) hot matmul. They say nothing
-# about an H100, and the port's engine does not call auto_hot_width
-# (hot_width="auto" resolves to 0 there, see models/wals.py).
-_GATHER_NS_PER_ROW = 3.4
-_GEMM_FLOPS = 6.0e13
+# The cost model's constants on an H100: ns for each modeled row of the
+# gathered cold stream, and FLOP/s of the hot head's GEMM. Fitted by
+# tools/hot_micro.py on the ml20m preset at k = 64, bf16 store, on an
+# "NVIDIA H100 80GB HBM3, 700.00 W": the split build (als_ops._build_bucket,
+# the hot GEMMs in f32 on operands upcast from the store) gave 1.1503 ns
+# and 51.038 TFLOP/s. The fused build (csrc/build_solve.cu, the hot head in
+# hot_gemm_kernel) gave 2.0572 ns and 48.987 TFLOP/s, and picks what these
+# pick on both sides of both builds there (user H = 256, item H = 0, each
+# the fastest measured), so one pair serves every solver.
+GATHER_NS_PER_ROW = 1.1503
+GEMM_FLOPS = 5.1038e13
 _AUTO_CANDIDATES = (256, 512, 1024, 2048, 4096, 8192)
 # Cap W_a+W_b memory (bytes per element decided by the caller's store
 # dtype; the cap below assumes 2-byte bf16 storage).
 _W_BUDGET_BYTES = 2 << 30
+_FILL = 0.8  # the padded stream's fill, as qmf_tpu models it
 
 
 def top_hot_columns(col_degrees: np.ndarray, h: int) -> np.ndarray:
@@ -67,37 +81,69 @@ def rank_lookup(hot_ids: np.ndarray, n_cols: int) -> np.ndarray:
     return out
 
 
+def _sorted_coverage(col_degrees: np.ndarray) -> Tuple[int, np.ndarray]:
+    """(nnz, cumulative nonzeros of the hottest columns, hottest first)."""
+    return int(col_degrees.sum()), np.cumsum(np.sort(col_degrees)[::-1])
+
+
+def _terms(nnz: int, cum: np.ndarray, n_build_rows: int, k: int, h: int,
+           fill: float) -> Tuple[float, int]:
+    covered = int(cum[h - 1]) if h > 0 else 0
+    return (nnz - covered) / fill, n_build_rows * h * (k * k + k) * 2
+
+
+def cost_terms(col_degrees: np.ndarray, n_build_rows: int, k: int, h: int,
+               fill: float = _FILL) -> Tuple[float, int]:
+    """The model's two regressors at hot width ``h``: (the cold stream's
+    modeled rows (nnz - coverage(h)) / fill, the hot GEMM's flops
+    n_build_rows h (k^2 + k) 2). The modeled build seconds are
+    rows * gather_ns_per_row * 1e-9 + flops / gemm_flops."""
+    nnz, cum = _sorted_coverage(col_degrees)
+    return _terms(nnz, cum, n_build_rows, k, h, fill)
+
+
+def modeled_ms(col_degrees: np.ndarray, n_build_rows: int, k: int, h: int,
+               fill: float = _FILL) -> float:
+    """The modeled build ms of one side at hot width ``h`` (the quantity
+    :func:`auto_hot_width` minimizes, with its default constants)."""
+    rows, flops = cost_terms(col_degrees, n_build_rows, k, h, fill)
+    return 1e3 * (rows * GATHER_NS_PER_ROW * 1e-9 + flops / GEMM_FLOPS)
+
+
 def auto_hot_width(
     col_degrees: np.ndarray,
     n_build_rows: int,
     k: int,
-    fill: float = 0.8,
+    fill: float = _FILL,
     store_bytes: int = 2,
+    gather_ns_per_row: float = GATHER_NS_PER_ROW,
+    gemm_flops: float = GEMM_FLOPS,
 ) -> int:
     """Pick H minimizing modeled build time: cold gathers + hot GEMM.
 
-    cold(H) ~ (nnz - coverage(H)) / fill * 3.4 ns   (padded gather stream)
-    hot(H)  ~ n_build_rows * H * k^2 * 2 / 60 TFLOP/s
+    cold(H) ~ (nnz - coverage(H)) / fill * gather_ns_per_row
+    hot(H)  ~ n_build_rows * H * (k^2 + k) * 2 / gemm_flops
 
     Returns 0 when no candidate beats the unsplit build (e.g. a flat,
     non-power-law degree distribution) or when W would blow the memory
-    budget.
+    budget. qmf_tpu's rule with its two constants as arguments: given
+    qmf_tpu's (3.4 ns, 6e13 FLOP/s, fitted on a TPU v5e) it picks what
+    qmf_tpu picks.
     """
     nnz = int(col_degrees.sum())
     if nnz == 0 or n_build_rows == 0:
         return 0
-    deg_sorted = np.sort(col_degrees)[::-1]
-    cum = np.cumsum(deg_sorted)
-    best_h, best_t = 0, nnz / fill * _GATHER_NS_PER_ROW * 1e-9
+    nnz, cum = _sorted_coverage(col_degrees)
+    best_h, best_t = 0, nnz / fill * gather_ns_per_row * 1e-9
     for h in _AUTO_CANDIDATES:
-        if h > len(deg_sorted):
+        if h > len(cum):
             break
         if 2 * n_build_rows * h * store_bytes > _W_BUDGET_BYTES:
             break
-        cold = (nnz - int(cum[h - 1])) / fill * _GATHER_NS_PER_ROW * 1e-9
-        hot = n_build_rows * h * (k * k + k) * 2 / _GEMM_FLOPS
-        if cold + hot < best_t:
-            best_h, best_t = h, cold + hot
+        rows, flops = _terms(nnz, cum, n_build_rows, k, h, fill)
+        t = rows * gather_ns_per_row * 1e-9 + flops / gemm_flops
+        if t < best_t:
+            best_h, best_t = h, t
     return best_h
 
 

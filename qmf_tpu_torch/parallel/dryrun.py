@@ -63,6 +63,10 @@ def _run_wals(mesh: Mesh, job: dict) -> dict:
 
     me = _metrics(job)
     eng = ShardedWALSEngine(WALSConfig(**job["config"]), me, mesh=mesh)
+    if job.get("hot_widths"):
+        # each side's width forced, the user side's first (init's order)
+        order = iter(job["hot_widths"])
+        eng._resolve_hot_width = lambda col_degrees, n_build_rows: next(order)
     eng.init(read_ratings_npz(job["train"]))
     if me is not None:
         eng.init_test(read_ratings_npz(job["test"]))
@@ -85,6 +89,7 @@ def _run_wals(mesh: Mesh, job: dict) -> dict:
         "build_solve_launches": build_solve.launches,
         "build_solve_hot_launches": build_solve.launches_hot,
         "solver": eng._solver,
+        "hot_widths": [eng.hot_widths["user"], eng.hot_widths["item"]],
         "pack_kind": eng._pack_kind,
         # why the epoch program ran as eager ops (empty: a CUDA graph)
         "eager_reasons": "; ".join(eng._eager_reasons),
@@ -127,7 +132,8 @@ def run_jobs(mesh: Mesh, jobs) -> None:
     optionally ``test`` with ``metrics``, MetricsConfig's arguments; AUC is
     computed on rank 0), ``config`` (the engine config's arguments),
     optionally ``checkpoint`` (a directory: resume from it, write to it),
-    and ``out``.
+    for WALS optionally ``hot_widths`` ((user H, item H), forced in place
+    of what the config's hot_width resolves to), and ``out``.
     """
     for job in jobs:
         run = {"wals": _run_wals, "bpr": _run_bpr}[job["engine"]]

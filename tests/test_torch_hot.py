@@ -66,7 +66,10 @@ def test_auto_hot_width_matches(case):
         rows = 10_000_000
     if case == "empty":
         deg[:] = 0
-    got = hot.auto_hot_width(deg, rows, k)
+    # qmf_tpu's TPU constants passed in: the port's defaults are the H100's
+    got = hot.auto_hot_width(deg, rows, k,
+                             gather_ns_per_row=jax_hot._GATHER_NS_PER_ROW,
+                             gemm_flops=jax_hot._GEMM_FLOPS)
     assert got == jax_hot.auto_hot_width(deg, rows, k)
     if case == "powerlaw":
         assert got >= 256

@@ -657,3 +657,45 @@ def test_class_solve_false_on_the_card_equals_true(cuda, hot_width):
     n_classes = len(split._user_classes) + len(split._item_classes)
     assert (n_split, n_whole) == (3 * n_chunks, 3 * n_classes)
     assert n_chunks > n_classes
+
+
+@pytest.mark.parametrize("solver", ["kernel", "fused"])
+def test_auto_hot_widths_on_the_card(cuda, solver):
+    """hot_width="auto" in float32 on a card: each side's resolved width is
+    ops/hot.py's pick on the same degrees; and with the user side forced to H = 256 and the item
+    side to 0, three epochs as a whole run (a warm-up and two replays)
+    equal three eager epochs bit for bit."""
+    import numpy as np
+
+    from qmf_tpu_torch.config import WALSConfig
+    from qmf_tpu_torch.data import Dataset
+    from qmf_tpu_torch.models import WALSEngine
+    from qmf_tpu_torch.ops import graphs, hot
+    from qmf_tpu_torch.tools import hot_micro
+
+    rng = np.random.default_rng(4)
+    p = 1.0 / np.arange(1, 701)
+    key = np.unique(rng.integers(0, 3000, 60_000) * 700
+                    + rng.choice(700, size=60_000, p=p / p.sum()))
+    ds = Dataset(key // 700 + 1, key % 700 + 1,
+                 rng.integers(1, 11, len(key)) * 0.5)
+    eng = WALSEngine(WALSConfig(nfactors=32, solver=solver,
+                                matmul_precision="default"), device=cuda)
+    eng.init(ds)
+    demand = hot_micro.side_demand(ds)
+    assert eng.hot_widths == {side: hot.auto_hot_width(*demand[side], 32)
+                              for side in ("user", "item")}
+    widths = {"user": 256, "item": 0}
+    runs = {}
+    for fuse_epoch in (True, False):
+        eng = hot_micro.forced_engine(ds, WALSConfig(
+            nepochs=3, nfactors=32, batch_rows=256, solver=solver,
+            matmul_precision="default", fuse_epoch=fuse_epoch), widths, cuda)
+        assert eng.hot_widths == widths and eng._item_hot is None
+        eng.optimize()
+        torch.cuda.synchronize()
+        runs[fuse_epoch] = eng
+    assert isinstance(runs[True]._program, graphs.EpochGraph)
+    assert runs[True]._program.replays == 2
+    assert torch.equal(runs[True].user_factors, runs[False].user_factors)
+    assert torch.equal(runs[True].item_factors, runs[False].item_factors)
