@@ -178,6 +178,16 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    rule's modeled build ms; the pick's ratio to H = 0 (at most 1.03) and
    to the fastest width timed.
 
+15. the measurement entry points: (b) right after 14, on phase 4's engine
+   (no new init), tools/epoch_decomp.decompose: the replayed epoch, each
+   side's build with and without the hot head and its solve, each part
+   captured and replayed as a CUDA graph, every part finite and positive;
+   (a) after the WALS engines are freed, ``python -m
+   qmf_tpu_torch.tools.bench`` as a subprocess at its defaults (ml20m, k =
+   64, 7 epochs, then BPR at k = 30) with one spread round: its two metric
+   lines, finite, with the card's name and power limit; then the phase's
+   seconds on a ``phase 15 total`` line.
+
 Phases 3, 4, 6, 10a, 10d, 11a and 14 run with fuse_epoch=True (the default):
 on the card each epoch is a replay of a captured graph, and the launch
 counts include the replays (ops/graphs.py keeps the counters true).
@@ -3305,6 +3315,93 @@ def hot_width_check(data, split: dict, engines: list, device: str = "cuda",
     return launches
 
 
+# Phase 15: the metric lines tools/bench.py prints at its defaults.
+BENCH_METRICS = ("ml20m_wals_epoch_time_k64_torch",
+                 "ml20m_bpr_updates_per_s_torch")
+
+
+def decomposition(engine) -> float:
+    """Phase 15b: tools/epoch_decomp.decompose on phase 4's split engine
+    (its packed data at "auto"'s widths, no new init): the replayed epoch
+    and each side's build (with and without the hot head) and solve, each
+    captured and replayed as a CUDA graph, every part finite and positive,
+    and chol_solve's launches in it. Returns the phase's seconds."""
+    import math
+
+    from qmf_tpu_torch.ops import spd_solve
+    from qmf_tpu_torch.tools import epoch_decomp
+
+    t0 = time.time()
+    spd_solve.launches = 0
+    parts = epoch_decomp.decompose(engine)
+    launches = spd_solve.launches
+    ms = {k: v for k, v in parts.items() if k.endswith("_ms")}
+    bad = {k: v for k, v in ms.items() if not (math.isfinite(v) and v > 0)}
+    if bad or parts["mode"] != "split" or not launches > 0:
+        raise AssertionError(f"15b: parts {parts}, chol_solve launches "
+                             f"{launches}")
+    for ln in epoch_decomp.report(parts).splitlines():
+        print("  15b", ln, file=sys.stderr, flush=True)
+    _line("15b epoch decomposition", t0, solver=parts["solver"],
+          hot_widths=parts["hot_widths"],
+          epoch_ms_each=[round(x, 3) for x in parts["epoch_ms_each"]],
+          **{k: round(v, 3) for k, v in ms.items()},
+          chol_solve_launches=launches)
+    return time.time() - t0
+
+
+def bench_tool(smi: str) -> float:
+    """Phase 15a: ``python -m qmf_tpu_torch.tools.bench`` once, as a
+    subprocess, at its defaults (ml20m, k = 64, 7 epochs, then BPR at k =
+    30) with one spread round (QMF_BENCH_SPREAD_ROUNDS=1: a noisy host
+    costs no 30 s sleeps); it loads the kernels this run built. Its two
+    metric lines: finite values, a finite WALS loss, and the card's name
+    and power limit as phase 0's nvidia-smi line gives them. Its ``#``
+    lines go to stderr. Returns the phase's seconds."""
+    import math
+    import re
+
+    t0 = time.time()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("QMF_BENCH_")}
+    env["QMF_BENCH_SPREAD_ROUNDS"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-m", "qmf_tpu_torch.tools.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=900)
+    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("#")]
+    for ln in notes:
+        print("  15a", ln, file=sys.stderr, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"15a: tools.bench exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    metrics = {}
+    for ln in proc.stdout.splitlines():
+        obj = json.loads(ln)  # the tool's stdout holds its metric lines
+        metrics[obj["metric"]] = obj
+    name, _, power = smi.rpartition(",")
+    device = {"name": name.strip(),
+              "power_limit_w": float(power.strip().split()[0])}
+    wals, bpr = (metrics.get(m) for m in BENCH_METRICS)
+    if sorted(metrics) != sorted(BENCH_METRICS) or any(
+            not (math.isfinite(m["value"]) and m["value"] > 0)
+            or m["device"] != device for m in (wals, bpr)) \
+            or not math.isfinite(wals["loss"]):
+        raise AssertionError(f"15a: metric lines {metrics}, card {device}")
+    busy = [float(x) for ln in notes
+            for x in re.findall(r"busy ([0-9.]+)% of the wall", ln)]
+    _line("15a bench", t0, card=repr(device["name"]),
+          power_limit_w=device["power_limit_w"],
+          wals_epoch_s=wals["value"], wals_spread=wals["spread"],
+          wals_epochs_s=wals["epochs_s"], wals_loss=wals["loss"],
+          solver=wals["solver"], hot_widths=wals["hot_widths"],
+          bpr_updates_per_s=bpr["value"], bpr_spread=bpr["spread"],
+          bpr_epochs_s=bpr["epochs_s"], bpr_path=bpr["path"],
+          vs_baseline=[wals["vs_baseline"], bpr["vs_baseline"]],
+          profiled_busy_pct_wals_bpr=busy)
+    return time.time() - t0
+
+
 @contextlib.contextmanager
 def _deterministic():
     """torch.use_deterministic_algorithms for a comparison: index_add_ then
@@ -3613,7 +3710,7 @@ def main() -> int:
     import torch
 
     t_start = time.time()
-    card()
+    smi = card()
     build()
     timing = kernel_check()
     with tempfile.TemporaryDirectory(prefix="qmf_chip_smoke_") as tmp:
@@ -3634,8 +3731,11 @@ def main() -> int:
         class_solve = class_solve_check(split_engine)
         hot = hot_width_check(data, main_path,
                               [split_engine, h0_engine, fused_engine])
+        phase15_s = decomposition(split_engine)
         del split_engine, fused_engine, h0_engine
         torch.cuda.empty_cache()
+        phase15_s += bench_tool(smi)
+        print(f"phase 15 total: ok seconds={phase15_s:.1f}", flush=True)
         bpr_check()
         bpr_cli(cli_files)
         bpr = bpr_scale(data)

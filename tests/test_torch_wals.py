@@ -242,8 +242,9 @@ def test_port_imports_no_jax():
 
 def test_port_imports_nothing_of_qmf_tpu():
     """Importing every module of the port and chip_smoke leaves no qmf_tpu
-    module in sys.modules, and no .py file of the port has an import of
-    qmf_tpu: the port keeps its own copies of the host layer."""
+    module, and not the root bench.py, in sys.modules, and no .py file of
+    the port has an import of either: the port keeps its own copies of the
+    host layer and of the bench's protocol (tools/bench.py)."""
     import ast
 
     code = (
@@ -253,7 +254,7 @@ def test_port_imports_nothing_of_qmf_tpu():
         "    importlib.import_module(m.name)\n"
         "import qmf_tpu_torch.models.bpr, qmf_tpu_torch.cli.bpr\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'qmf_tpu' "
+        "bad = sorted(m for m in sys.modules if m in ('qmf_tpu', 'bench') "
         "or m.startswith('qmf_tpu.'))\n"
         "assert not bad, bad\n"
     )
@@ -269,7 +270,8 @@ def test_port_imports_nothing_of_qmf_tpu():
             mods = [node.module or ""]
         else:
             return False
-        return any(m == "qmf_tpu" or m.startswith("qmf_tpu.") for m in mods)
+        return any(m in ("qmf_tpu", "bench") or m.startswith("qmf_tpu.")
+                   for m in mods)
 
     pkg = os.path.join(REPO, "qmf_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
@@ -284,7 +286,8 @@ def test_port_imports_nothing_of_qmf_tpu():
                 "distributed/scheduler.py", "distributed/labor.py",
                 "distributed/submit.py", "cli/wals_scheduler.py",
                 "cli/wals_labor.py", "cli/wals_submit.py",
-                "utils/tracing.py", "data/native.py", "ops/device_pack.py"):
+                "utils/tracing.py", "data/native.py", "ops/device_pack.py",
+                "tools/bench.py", "tools/epoch_decomp.py"):
         assert os.path.join(pkg, new) in files
     bad = []
     for path in files + [os.path.join(REPO, "chip_smoke.py")]:
