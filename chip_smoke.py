@@ -187,6 +187,23 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    64, 7 epochs, then BPR at k = 30) with one spread round: its two metric
    lines, finite, with the card's name and power limit; then the phase's
    seconds on a ``phase 15 total`` line.
+16. the decomposition probes: (a) right after 15b, on phase 4's engine (at
+   "auto"'s widths) and on the H = 0 engine of phases 5-7 (no new init),
+   tools/build_attrib.attribute: each side's width classes, the split build
+   with and without the hot head and the fused build_solve.cu with and
+   without it, each class captured and replayed as a CUDA graph, every
+   class's ms finite and positive, each side's sums beside 15b's side
+   parts, and build_solve.cu's launches in the phase on a line of their
+   own; (b) between 12b and 13, on phase 9d's engine (batch 32,768, word
+   sampler) and on two fresh engines of its data (batch 8,192; the Bloom
+   filter with the CSR check), each bpr_decomp.init_like 9d's engine:
+   tools/bpr_decomp.decompose (the replayed epoch, pass 1 and the SGD loop
+   timed in turns, pass 1's stages, the bench step's host parts), every
+   part finite and positive, and on 9d's and the Bloom engine
+   bpr_decomp.split_check: pass 1 and the loop, each a CUDA graph, replayed
+   torch.equal to a graph of the epoch program under
+   torch.use_deterministic_algorithms; then the phase's seconds on a
+   ``phase 16 total`` line.
 
 Phases 3, 4, 6, 10a, 10d, 11a and 14 run with fuse_epoch=True (the default):
 on the card each epoch is a replay of a captured graph, and the launch
@@ -638,7 +655,7 @@ def cli_path(preset: str = "ml100k", device: str = "cuda",
     import numpy as np
     import torch
 
-    from benchmarks.datagen import PRESETS, generate, write_ratings
+    from qmf_tpu_torch.tools.datagen import PRESETS, generate, write_ratings
     from qmf_tpu_torch import WALSConfig
     from qmf_tpu_torch.cli import wals as cli
     from qmf_tpu_torch.data import native
@@ -745,7 +762,7 @@ def _native_write_parity(engine) -> bool:
 
 def ml20m_data(preset: str = "ml20m"):
     """The (train, test) split phases 4 and 6 share, and its seconds."""
-    from benchmarks.datagen import PRESETS, generate
+    from qmf_tpu_torch.tools.datagen import PRESETS, generate
 
     t0 = time.time()
     data = _split(*generate(**PRESETS[preset], seed=SEED))
@@ -843,17 +860,12 @@ def model_scale(data, t_data: float, device: str = "cuda",
 def unsplit_engine(engine, data, device: str = "cuda"):
     """Phase 4's engine with both hot widths at 0: ``engine`` itself where
     hot_width "auto" resolved 0 on both sides, else its configuration
-    packed again at H = 0 (tools/hot_micro.forced_engine) holding its
+    packed again at H = 0 (tools/build_attrib.h0_engine) holding its
     trained factors. Phases 5-7 time the kernels on its classes, as every
     run before hot_width "auto" did."""
-    from qmf_tpu_torch.tools import hot_micro
+    from qmf_tpu_torch.tools import build_attrib
 
-    if not any(engine.hot_widths.values()):
-        return engine
-    h0 = hot_micro.forced_engine(data[0], engine.config,
-                                 {"user": 0, "item": 0}, device)
-    h0.load_factors(engine.user_factors, engine.item_factors)
-    return h0
+    return build_attrib.h0_engine(engine, data[0], device)
 
 
 def _program_kind(engine) -> str:
@@ -1080,7 +1092,7 @@ def _cli_fused(preset: str = "ml100k", device: str = "cuda") -> tuple:
     "auto" resolves, so build_solve's two variants launch once a chunk
     each, the hot one on a side above 0. Returns (launches of each
     variant, their expected counts an epoch, the widths, test AUC)."""
-    from benchmarks.datagen import PRESETS, generate, write_ratings
+    from qmf_tpu_torch.tools.datagen import PRESETS, generate, write_ratings
     from qmf_tpu_torch import WALSConfig
     from qmf_tpu_torch.cli import wals as cli
     from qmf_tpu_torch.ops import build_solve, spd_solve
@@ -2304,7 +2316,7 @@ CP_POLL_S, CP_TASK_S, CP_SLEEP_S, CP_TEST_USERS = 0.5, 400.0, 1.5, 3000
 
 
 def _write_ratings(path: str, dataset, parts: int = 8) -> float:
-    """benchmarks.datagen.write_ratings of ``dataset`` into ``path``: its
+    """tools.datagen.write_ratings of ``dataset`` into ``path``: its
     ``parts`` slices written by as many processes side by side, then joined
     (one np.savetxt of ml20m's 18M rows takes ~1 min). Returns the
     seconds."""
@@ -2314,7 +2326,7 @@ def _write_ratings(path: str, dataset, parts: int = 8) -> float:
 
     import numpy as np
 
-    from benchmarks.datagen import write_ratings
+    from qmf_tpu_torch.tools.datagen import write_ratings
 
     t0 = time.time()
     cuts = np.linspace(0, len(dataset), parts + 1).astype(int)
@@ -3320,12 +3332,13 @@ BENCH_METRICS = ("ml20m_wals_epoch_time_k64_torch",
                  "ml20m_bpr_updates_per_s_torch")
 
 
-def decomposition(engine) -> float:
+def decomposition(engine) -> tuple:
     """Phase 15b: tools/epoch_decomp.decompose on phase 4's split engine
     (its packed data at "auto"'s widths, no new init): the replayed epoch
     and each side's build (with and without the hot head) and solve, each
     captured and replayed as a CUDA graph, every part finite and positive,
-    and chol_solve's launches in it. Returns the phase's seconds."""
+    and chol_solve's launches in it. Returns the phase's seconds and the
+    parts."""
     import math
 
     from qmf_tpu_torch.ops import spd_solve
@@ -3336,8 +3349,8 @@ def decomposition(engine) -> float:
     parts = epoch_decomp.decompose(engine)
     launches = spd_solve.launches
     ms = {k: v for k, v in parts.items() if k.endswith("_ms")}
-    bad = {k: v for k, v in ms.items() if not (math.isfinite(v) and v > 0)}
-    if bad or parts["mode"] != "split" or not launches > 0:
+    if _finite_positive(ms) or parts["mode"] != "split" \
+            or not launches > 0:
         raise AssertionError(f"15b: parts {parts}, chol_solve launches "
                              f"{launches}")
     for ln in epoch_decomp.report(parts).splitlines():
@@ -3347,7 +3360,7 @@ def decomposition(engine) -> float:
           epoch_ms_each=[round(x, 3) for x in parts["epoch_ms_each"]],
           **{k: round(v, 3) for k, v in ms.items()},
           chol_solve_launches=launches)
-    return time.time() - t0
+    return time.time() - t0, parts
 
 
 def bench_tool(smi: str) -> float:
@@ -3399,6 +3412,143 @@ def bench_tool(smi: str) -> float:
           bpr_epochs_s=bpr["epochs_s"], bpr_path=bpr["path"],
           vs_baseline=[wals["vs_baseline"], bpr["vs_baseline"]],
           profiled_busy_pct_wals_bpr=busy)
+    return time.time() - t0
+
+
+# Phase 16: replays of a part in build_attrib and samples of a part in
+# bpr_decomp (the tools' REPS is 5). Fewer keep the phase under 90 s, most
+# of which goes to capturing the BPR epochs' graphs (52k-208k nodes).
+ATTRIB_REPS, BPR_DECOMP_REPS = 2, 2
+# 16b's engines whose split_check runs: its deterministic graphs hold about
+# three times the nodes of the default capture, and at batch 8,192 (208k
+# nodes by default) two of them would take longer than the rest of phase 16
+SPLIT_CHECKED = ("9d", "bloom")
+
+
+def _finite_positive(ms: dict) -> dict:
+    """The entries of ``ms`` that are not finite and positive."""
+    import math
+
+    return {k: v for k, v in ms.items()
+            if not (math.isfinite(v) and v > 0)}
+
+
+def build_attribution(engines: dict, decomp: dict) -> dict:
+    """Phase 16a: tools/build_attrib.attribute on phase 4's engine (at
+    "auto"'s widths) and on the H = 0 engine of phases 5-7, both holding
+    phase 4's factors (no new init): each side's width classes on the
+    split build and build_solve.cu, with and without the hot head where H
+    > 0, each class a CUDA graph; every class's ms finite and positive,
+    each side's sums printed beside 15b's parts ``decomp``, and
+    build_solve.cu's launches (both variants) in the phase on its line, not
+    in the kernels line (the probe is not the main path). Returns the
+    phase's seconds."""
+    import torch
+
+    from qmf_tpu_torch.ops import build_solve
+    from qmf_tpu_torch.tools import build_attrib
+
+    t0 = time.time()
+    build_solve.launches = build_solve.launches_hot = 0
+    for name, engine in engines.items():
+        t1 = time.time()
+        got = build_attrib.attribute(engine, ATTRIB_REPS)
+        for side, part in got["sides"].items():
+            for r in part["classes"]:
+                bad = _finite_positive({k: v for k, v in r.items()
+                                        if k.endswith("_ms")})
+                if bad:
+                    raise AssertionError(f"16a {name} {side}: class {r}")
+        text = build_attrib.report(got, decomp if name == "auto" else None)
+        for ln in text.splitlines():
+            print("  16a", name, ln, file=sys.stderr, flush=True)
+        sums = {f"{side}_{p}_ms": round(ms, 3)
+                for side, part in got["sides"].items()
+                for p, ms in part["sums_ms"].items()}
+        beside = {k: round(v, 3) for k, v in decomp.items()
+                  if k.startswith(("user_", "item_")) and k.endswith("_ms")} \
+            if name == "auto" else None
+        classes = {side: [(r["D"], r["N"], round(r["split_ms"], 3),
+                           round(r["fused_ms"], 3))
+                          for r in part["classes"]]
+                   for side, part in got["sides"].items()}
+        _line(f"16a build attribution {name}", t1,
+              hot_widths=got["hot_widths"], **sums, fifteen_b=beside,
+              classes_d_n_split_fused_ms=classes)
+        del got
+        torch.cuda.empty_cache()
+    launches = {"build_solve": build_solve.launches,
+                "build_solve_hot": build_solve.launches_hot}
+    if not launches["build_solve"] > 0:
+        raise AssertionError(f"16a: build_solve.cu launches {launches}")
+    _line("16a build_solve.cu launches", t0, **launches)
+    return time.time() - t0
+
+
+def bpr_decomposition(engine, device: str = "cuda") -> float:
+    """Phase 16b, between 12b and 13: tools/bpr_decomp on phase 9d's
+    engine as 12b returns it (batch 32,768, word sampler, its epoch graph
+    captured), then on two fresh engines of 9d's data (bpr_decomp.init_like
+    9d's engine), batch 8,192 and the Bloom filter with the CSR check
+    (bitmap_budget_mb=0): decompose's parts (the replayed epoch, pass 1
+    and the SGD loop timed in turns, pass 1's stages, the bench step's
+    host parts), every one finite and positive; and on the engines of
+    SPLIT_CHECKED, split_check: pass 1 and the loop, each its own CUDA
+    graph, against a graph of the engine's epoch program, every replay
+    under torch.use_deterministic_algorithms, torch.equal. Phase 13 trains
+    9d's engine again from its start. Returns the phase's seconds."""
+    import torch
+
+    from qmf_tpu_torch.models import BPREngine
+    from qmf_tpu_torch.tools import bpr_decomp
+
+    t0 = time.time()
+
+    def fresh(batch, bloom):
+        eng = BPREngine(bpr_decomp.bpr_config(batch, bloom), device=device)
+        bpr_decomp.init_like(eng, engine)
+        return eng
+
+    for name, make in (("9d", lambda: engine),
+                       ("batch8192", lambda: fresh(8192, False)),
+                       ("bloom", lambda: fresh(BPR_BATCH, True))):
+        t1 = time.time()
+        eng = make()
+        torch.cuda.synchronize()
+        init_s = time.time() - t1
+        parts = bpr_decomp.decompose(eng, BPR_DECOMP_REPS)
+        decompose_s = time.time() - t1 - init_s
+        ms = {k: v for k, v in parts.items()
+              if k.endswith("_ms") and k != "stages_ms"}
+        ms.update({f"stage_{k}": v for k, v in parts["stages_ms"].items()})
+        ms.update({f"updates_per_s_{k}": v
+                   for k, v in parts["updates_per_s"].items()})
+        check = None
+        if name in SPLIT_CHECKED:
+            check = bpr_decomp.split_check(eng)
+            check["seconds"] = round(time.time() - t1 - init_s
+                                     - decompose_s, 3)
+        want = {"bloom": "bloom"}.get(name, "word")
+        if _finite_positive(ms) or parts["membership"] != want \
+                or not (check is None or check["equal"]):
+            raise AssertionError(f"16b {name}: parts {parts}, split check "
+                                 f"{check}")
+        for ln in bpr_decomp.report(parts).splitlines():
+            print("  16b", name, ln, file=sys.stderr, flush=True)
+        _line(f"16b bpr decomposition {name}", t1,
+              init_like_s=round(init_s, 3) if name != "9d" else None,
+              decompose_s=round(decompose_s, 3),
+              batch=parts["batch"], membership=parts["membership"],
+              collide_cap=parts["collide_cap"], nodes=parts["nodes"],
+              real_triplets=parts["real_triplets"],
+              **{k: [round(x, 3) for x in v] for k, v in parts.items()
+                 if k.endswith("_each")},
+              **{k: round(v, 3) for k, v in ms.items()},
+              split_check=check)
+        del parts
+        if eng is not engine:
+            del eng
+        torch.cuda.empty_cache()
     return time.time() - t0
 
 
@@ -3731,7 +3881,11 @@ def main() -> int:
         class_solve = class_solve_check(split_engine)
         hot = hot_width_check(data, main_path,
                               [split_engine, h0_engine, fused_engine])
-        phase15_s = decomposition(split_engine)
+        phase15_s, decomp = decomposition(split_engine)
+        attrib_s = build_attribution(
+            {"auto": split_engine, "h0": h0_engine}
+            if h0_engine is not split_engine else {"auto": split_engine},
+            decomp)
         del split_engine, fused_engine, h0_engine
         torch.cuda.empty_cache()
         phase15_s += bench_tool(smi)
@@ -3741,6 +3895,8 @@ def main() -> int:
         bpr = bpr_scale(data)
         profile_bpr_epoch(bpr["engine"], bpr["epoch_s"])
         bpr_engine = bpr_graphs(data, bpr)
+        phase16_s = attrib_s + bpr_decomposition(bpr_engine)
+        print(f"phase 16 total: ok seconds={phase16_s:.1f}", flush=True)
         bpr_programs(bpr_engine, bpr)
         del bpr_engine
         torch.cuda.empty_cache()

@@ -69,6 +69,19 @@ _EVAL_ROUNDS = 16
 _EVAL_SAMPLE_CHUNK = 4_000_000
 
 
+def _stage_marker(stages: dict):
+    """``mark(name)``: the seconds since the previous mark (or since this
+    call) into ``stages[name]``."""
+    last = [time.time()]
+
+    def mark(name):
+        now = time.time()
+        stages[name] = round(now - last[0], 3)
+        last[0] = now
+
+    return mark
+
+
 class BPREngine(Engine):
     # the ranks' Mesh of the sharded engine (parallel/sharded_bpr.py); None
     # runs every step here
@@ -160,14 +173,8 @@ class BPREngine(Engine):
     def init(self, dataset: Dataset) -> None:
         if self.params is not None:
             raise RuntimeError("engine was already initialized with train data")
-        cfg = self.config
         stages = self._init_stages = {}  # stage -> seconds (observability)
-        t_stage = time.time()
-
-        def _mark(name):
-            nonlocal t_stage
-            stages[name] = round(time.time() - t_stage, 3)
-            t_stage = time.time()
+        mark = _stage_marker(stages)
 
         # positives: value >= 1.0, ids indexed in first-appearance order;
         # index + full-stream lookup come from ONE unique pass per side
@@ -182,14 +189,24 @@ class BPREngine(Engine):
         )
         self._data_users = u_idx.astype(np.int32)
         self._data_items = i_idx.astype(np.int32)
-        _mark("index")
+        mark("index")
 
         # one lexsort feeds BOTH the CSR set and the bitmap build
         self._pos_set, sorted_u, sorted_i = bpr_ops.make_pos_set(
             self._data_users, self._data_items, self.nusers,
             return_sorted=True, device=self.device,
         )
-        _mark("pos_set")
+        mark("pos_set")
+        self._init_from_positives(sorted_u, sorted_i, mark)
+        log.info("BPR init stages (s): %s", stages)
+
+    def _init_from_positives(self, sorted_u: np.ndarray,
+                             sorted_i: np.ndarray, mark) -> None:
+        """init from the positive set on: the membership structure, the
+        stream, the eval set and the parameters; ``sorted_u``/``sorted_i``
+        are make_pos_set's lexsorted deduplicated pairs, ``mark(name)``
+        closes each stage."""
+        cfg = self.config
         # O(1) membership bitmap for the hot sampler when the id space
         # fits the budget (U*I/8 bytes). Beyond it, a blocked Bloom filter
         # (memory independent of n_items) + compacted exact CSR verify
@@ -224,7 +241,7 @@ class BPREngine(Engine):
                 self.nusers * bits / 8 / 2**20,
             )
 
-        _mark("membership")
+        mark("membership")
 
         # grouped fast path: ONE stream row per positive pair; the row's
         # num_negative_samples negatives live as 2-bit round indices
@@ -295,11 +312,10 @@ class BPREngine(Engine):
             )
         else:
             self._build_triplet_stream()
-        _mark("stream")
+        mark("stream")
 
         self._post_stream_init()
-        _mark("eval_and_params")
-        log.info("BPR init stages (s): %s", stages)
+        mark("eval_and_params")
 
     def _build_triplet_stream(self) -> None:
         """Legacy triplet stream: each positive pair repeated
@@ -455,6 +471,34 @@ class BPREngine(Engine):
         return (self._pos_bitmap if self._pos_bitmap is not None
                 else self._pos_bloom)
 
+    def _grouped_args(self) -> tuple:
+        """The arguments of bpr_ops.grouped_epoch (and grouped_parts) for
+        this engine's grouped path."""
+        cfg = self.config
+        return (self._grp_up, self._membership(), cfg.user_lambda,
+                cfg.item_lambda, cfg.bias_lambda, self.nitems,
+                self._n_real_pos, cfg.use_biases, cfg.num_negative_samples,
+                cfg.neg_resample_rounds, self._grp_batch, self._collide_cap,
+                cfg.shuffle_training_set,
+                self._pos_set if self._pos_bloom is not None else None,
+                cfg.item_scatter, cfg.neg_sampler, self.mesh)
+
+    def _rate(self) -> torch.Tensor:
+        """The rate as a 0-d tensor on the device: a captured program reads
+        it there each epoch (it decays between epochs)."""
+        return torch.full((), self.learning_rate, dtype=self.dtype,
+                          device=self.device)
+
+    def _grouped_inputs(self) -> tuple:
+        """The grouped epoch program's inputs before the parameters: this
+        epoch's draws and the rate, (rk, ks, lr), ``ks`` a placeholder
+        when the epoch does not shuffle."""
+        lr = self._rate()
+        rk, ks = self._draw_grouped_keys()
+        if ks is None:
+            ks = bpr_ops.no_keys(6, self.device)
+        return rk, ks, lr
+
     def _epoch_body(self):
         """The epoch of this engine's path as eager ops, a function of the
         epoch's draws, rate and parameters: bpr_ops.grouped_epoch (grouped),
@@ -464,13 +508,7 @@ class BPREngine(Engine):
         hyper = (cfg.user_lambda, cfg.item_lambda, cfg.bias_lambda)
         shuffle = cfg.shuffle_training_set
         if self._grouped:
-            return bpr_ops.grouped_epoch(
-                self._grp_up, self._membership(), *hyper, self.nitems,
-                self._n_real_pos, cfg.use_biases, cfg.num_negative_samples,
-                cfg.neg_resample_rounds, self._grp_batch, self._collide_cap,
-                shuffle,
-                self._pos_set if self._pos_bloom is not None else None,
-                cfg.item_scatter, cfg.neg_sampler, self.mesh)
+            return bpr_ops.grouped_epoch(*self._grouped_args())
         batch = min(cfg.batch_size, self._tri_users.shape[0])
         if self._legacy_packed():
             return bpr_ops.packed_epoch(
@@ -503,20 +541,14 @@ class BPREngine(Engine):
         """One epoch: this epoch's draws, then the epoch's program on them
         (shuffle + sample + all steps)."""
         program = self._epoch_program()
-        # the rate as a tensor on the device: a captured program reads it
-        # there each epoch (it decays between epochs)
-        lr = torch.full((), self.learning_rate, dtype=self.dtype,
-                        device=self.device)
         if self._grouped:
-            rk, ks = self._draw_grouped_keys()
-            if ks is None:
-                ks = bpr_ops.no_keys(6, self.device)
-            *params, self._last_overflow = program(rk, ks, lr, *self.params)
+            *params, self._last_overflow = program(*self._grouped_inputs(),
+                                                   *self.params)
         elif self._legacy_packed():
             ks, cands = self._draw_legacy()
             if ks is None:
                 ks = bpr_ops.no_keys(3, self.device)
-            params = program(ks, cands, lr, *self.params)
+            params = program(ks, cands, self._rate(), *self.params)
         else:
             perm, cands = self._draw_legacy()
             if perm is None:
@@ -524,7 +556,7 @@ class BPREngine(Engine):
                                            self.device)
             step = torch.zeros((), dtype=torch.int64, device=self.device)
             _, *params = graphs.run_steps(
-                program, (step, perm, cands, lr, *self.params),
+                program, (step, perm, cands, self._rate(), *self.params),
                 cands.shape[0])
         # a graph's outputs are its static buffers: the parameters it
         # updates in place, which the next replay reads where they are

@@ -63,8 +63,9 @@ mask. The streams and the membership words stay int32.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -884,6 +885,74 @@ def _set_compacted(n: int, cidx: torch.Tensor,
     return rounds[:n]
 
 
+def _slot_users(u: torch.Tensor, num_neg: int) -> torch.Tensor:
+    """The user of each negative slot f = row * num_neg + j: each row's user
+    repeated num_neg times, (n_rows * num_neg,), so that the presamplers'
+    f = arange(N_slots) lines up with the SGD loop's (t * batch + lane) *
+    num_neg + j (an expand: its shape is known without the device)."""
+    return u[:, None].expand(u.shape[0], num_neg).reshape(-1)
+
+
+def _first_round(member, rk: torch.Tensor, users_slots: torch.Tensor,
+                 n_items: int) -> torch.Tensor:
+    """Round 0's test of every slot f at full stream width: whether
+    ``_cand_hash(rk[0], f)`` is a positive of ``users_slots[f]`` by
+    ``member(users, items)`` (the exact bitmap, or the Bloom filter whose
+    hits are then verified)."""
+    f = torch.arange(users_slots.shape[0], dtype=torch.int32,
+                     device=users_slots.device)
+    return member(users_slots, _cand_hash(rk[0], f, n_items))
+
+
+def _collided(cidx: torch.Tensor, users_slots: torch.Tensor):
+    """(slot index, user) of each compacted slot ``cidx`` (:func:`_compact`),
+    whose fill rows read slot 0."""
+    cf = torch.where(cidx < users_slots.shape[0], cidx, 0)
+    return cf, users_slots[cf]
+
+
+def _later_rounds(member, rk: torch.Tensor, cf: torch.Tensor,
+                  cu: torch.Tensor, n_items: int, n_rounds: int,
+                  chosen: torch.Tensor, found: torch.Tensor) -> torch.Tensor:
+    """Rounds 1..R-1 on the compacted slots (:func:`_collided`): each slot
+    not yet ``found`` takes the first round whose candidate ``member``
+    rejects; the others keep ``chosen``. Returns the chosen round of each
+    compacted slot."""
+    for r in range(1, n_rounds):
+        m_r = member(cu, _cand_hash(rk[r], cf, n_items))
+        take = (~found) & (~m_r)
+        chosen = torch.where(take, r, chosen)
+        found = found | take
+    return chosen
+
+
+def _resample_bitmap(bitmap: PosBitmap, rk: torch.Tensor, cidx: torch.Tensor,
+                     users_slots: torch.Tensor, n_items: int,
+                     n_rounds: int) -> torch.Tensor:
+    """:func:`_sample_rounds`'s later rounds: the compacted slots collided
+    in round 0, so each starts at the last round, not yet found."""
+    cf, cu = _collided(cidx, users_slots)
+    return _later_rounds(
+        functools.partial(_is_member_bitmap, bitmap), rk, cf, cu, n_items,
+        n_rounds,
+        torch.full(cf.shape, n_rounds - 1, dtype=torch.int32,
+                   device=cf.device),
+        torch.zeros(cf.shape, dtype=torch.bool, device=cf.device))
+
+
+def _resample_exact(pos_set: PosSet, rk: torch.Tensor, cidx: torch.Tensor,
+                    users_slots: torch.Tensor, n_items: int,
+                    n_rounds: int) -> torch.Tensor:
+    """:func:`_sample_rounds_bloom`'s later rounds: the compacted Bloom hits
+    get the exact round-0 verdict of the CSR set first; false positives
+    keep round 0, true members walk rounds 1..R-1 under exact tests."""
+    member = functools.partial(_is_member, pos_set)
+    cf, cu = _collided(cidx, users_slots)
+    m0 = member(cu, _cand_hash(rk[0], cf, n_items))
+    chosen = torch.where(m0, n_rounds - 1, 0).to(torch.int32)
+    return _later_rounds(member, rk, cf, cu, n_items, n_rounds, chosen, ~m0)
+
+
 def _sample_rounds(
     rk: torch.Tensor,  # (R, 3) int32 round keys
     users_slots: torch.Tensor,  # (N,) int32 user of each negative slot
@@ -909,23 +978,15 @@ def _sample_rounds(
     """
     n = users_slots.shape[0]
     dev = users_slots.device
-    f = torch.arange(n, dtype=torch.int32, device=dev)
-    member0 = _is_member_bitmap(
-        bitmap, users_slots, _cand_hash(rk[0], f, n_items)
-    )
+    member0 = _first_round(
+        functools.partial(_is_member_bitmap, bitmap), rk, users_slots,
+        n_items)
     if n_rounds == 1:
         return (torch.zeros((n,), dtype=torch.int32, device=dev),
                 torch.zeros((), dtype=torch.int32, device=dev))
     cidx, n_overflow = _compact(member0, collide_cap)
-    cf = torch.where(cidx < n, cidx, 0)  # fill rows read slot 0
-    cu = users_slots[cf]
-    chosen = torch.full(cf.shape, n_rounds - 1, dtype=torch.int32, device=dev)
-    found = torch.zeros(cf.shape, dtype=torch.bool, device=dev)
-    for r in range(1, n_rounds):
-        m_r = _is_member_bitmap(bitmap, cu, _cand_hash(rk[r], cf, n_items))
-        take = (~found) & (~m_r)
-        chosen = torch.where(take, r, chosen)
-        found = found | take
+    chosen = _resample_bitmap(bitmap, rk, cidx, users_slots, n_items,
+                              n_rounds)
     return _set_compacted(n, cidx, chosen), n_overflow
 
 
@@ -948,25 +1009,12 @@ def _sample_rounds_bloom(
     Bloom false positives keep their (verified-negative) round-0 candidate;
     true members walk rounds 1..R-1 under exact CSR tests.
     """
-    n = users_slots.shape[0]
-    dev = users_slots.device
-    f = torch.arange(n, dtype=torch.int32, device=dev)
-    hit0 = _is_member_bloom(
-        bloom, users_slots, _cand_hash(rk[0], f, n_items)
-    )
+    hit0 = _first_round(functools.partial(_is_member_bloom, bloom), rk,
+                        users_slots, n_items)
     cidx, n_overflow = _compact(hit0, collide_cap)
-    cf = torch.where(cidx < n, cidx, 0)  # fill rows read slot 0
-    cu = users_slots[cf]
-    # exact round-0 verdict for the compacted slots
-    m0 = _is_member(pos_set, cu, _cand_hash(rk[0], cf, n_items))
-    chosen = torch.where(m0, n_rounds - 1, 0).to(torch.int32)
-    found = ~m0
-    for r in range(1, n_rounds):
-        m_r = _is_member(pos_set, cu, _cand_hash(rk[r], cf, n_items))
-        take = (~found) & (~m_r)
-        chosen = torch.where(take, r, chosen)
-        found = found | take
-    return _set_compacted(n, cidx, chosen), n_overflow
+    chosen = _resample_exact(pos_set, rk, cidx, users_slots, n_items,
+                             n_rounds)
+    return _set_compacted(users_slots.shape[0], cidx, chosen), n_overflow
 
 
 def draw_grouped_keys(generator: torch.Generator, n_rounds: int,
@@ -1014,28 +1062,13 @@ def _sample_pack_grouped_body(
     Returns (enc, p, n_overflow); ``rk`` and ``ks`` are the integers that
     qmf_tpu draws inside its ``_sample_pack_grouped_body``.
     """
-    n_stream = pos_up.shape[0]
-    if ks is not None:
-        idx = _feistel_bijection(ks, n_stream >> feistel_b, feistel_b)
-        up = pos_up[idx]
-        valid = idx < n_real
-    else:
-        up = pos_up
-        valid = torch.arange(
-            n_stream, dtype=torch.int32, device=pos_up.device
-        ) < n_real
-    u = up[:, 0]
-    p = up[:, 1]
+    u, p, valid = _shuffled_rows(ks, pos_up, n_real, feistel_b)
     if membership == "word":
         rounds_row, n_overflow = _sample_rounds_word(
             rk, u, PosBitmap(bitmap_words, wpu), n_items, n_rounds, num_neg
         )
     else:
-        # negative slot index f = row * num_neg + j; users_slots[f] is the
-        # user of slot f, so _sample_rounds's f = arange(N_slots) lines up
-        # with the SGD loop's (t * batch + lane) * num_neg + j (each user
-        # repeated num_neg times, of a shape known without the device)
-        users_slots = u[:, None].expand(n_stream, num_neg).reshape(-1)
+        users_slots = _slot_users(u, num_neg)
         if membership == "bloom":
             rounds, n_overflow = _sample_rounds_bloom(
                 rk,
@@ -1055,11 +1088,39 @@ def _sample_pack_grouped_body(
                 n_rounds,
                 collide_cap,
             )
-        rounds_row = rounds.reshape(n_stream, num_neg)
+        rounds_row = rounds.reshape(u.shape[0], num_neg)
+    return _encode(u, valid, u_shift, rounds_row), p, n_overflow
+
+
+def _shuffled_rows(ks: Optional[torch.Tensor], pos_up: torch.Tensor,
+                   n_real: int, feistel_b: int):
+    """Pass 1's shuffle: the (user, item) rows of ``pos_up`` in the order of
+    the Feistel bijection on the six keys ``ks`` (one row gather; in stream
+    order with ``ks`` None), as (u, p, valid), valid marking the rows that
+    came from the real prefix of ``n_real`` rows."""
+    n_stream = pos_up.shape[0]
+    if ks is not None:
+        idx = _feistel_bijection(ks, n_stream >> feistel_b, feistel_b)
+        up = pos_up[idx]
+        valid = idx < n_real
+    else:
+        up = pos_up
+        valid = torch.arange(
+            n_stream, dtype=torch.int32, device=pos_up.device
+        ) < n_real
+    return up[:, 0], up[:, 1], valid
+
+
+def _encode(u: torch.Tensor, valid: torch.Tensor, u_shift: int,
+            rounds_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The packed row (u << u_shift) | round_j << (1 + 2j) | valid, with
+    the (n_rows, num_neg) chosen rounds ``rounds_row`` (none: the user and
+    the valid bit alone)."""
     enc = (u << u_shift) | valid.to(torch.int32)
-    for j in range(num_neg):
-        enc = enc | (rounds_row[:, j] << (1 + 2 * j))
-    return enc, p, n_overflow
+    if rounds_row is not None:
+        for j in range(rounds_row.shape[1]):
+            enc = enc | (rounds_row[:, j] << (1 + 2 * j))
+    return enc
 
 
 def _slot_tables(num_neg: int, n_rounds: int, use_word: bool, device):
@@ -1282,7 +1343,16 @@ def grouped_path_reject_reason(
     return None
 
 
-def grouped_epoch(
+class GroupedParts(NamedTuple):
+    """The grouped epoch's two parts for one configuration
+    (:func:`grouped_parts`)."""
+
+    pass1: Callable  # (rk, ks) -> (enc, p, n_overflow)
+    sgd: Callable  # (enc, p, rk, lr, uf, itf, ib) -> (uf, itf, ib)
+    pack: dict  # pass 1's keyword arguments besides its four tensors
+
+
+def grouped_parts(
     pos_up: torch.Tensor,  # (n_stream, 2) int32 padded [user, item] pair rows
     bitmap,  # PosBitmap (exact) or PosBloom (needs pos_set for verify)
     user_lambda: float,
@@ -1300,23 +1370,14 @@ def grouped_epoch(
     item_scatter: str = "seq",
     sampler: str = "rounds",
     mesh=None,
-):
-    """One grouped training epoch for one configuration, as a function of
-    what changes from epoch to epoch: ``epoch(rk, ks, lr, uf, itf, ib) ->
-    (uf, itf, ib, n_overflow)``, the round keys, the six Feistel keys (read
-    only with ``shuffle``: a placeholder of that shape otherwise), the rate
-    as a 0-d tensor and the parameters, updated in place. It is pass 1
-    (:func:`_sample_pack_grouped_body`: shuffle, presample, pack) and then
-    the SGD loop (:func:`grouped_sgd`), qmf_tpu's two programs as one.
-    Nothing in it reads a device value on the host (the collision buffer
-    has a fixed size, :func:`_compact`), so a CUDA graph (ops/graphs.py)
-    captures all of it. ``n_overflow`` is a DEVICE scalar of
-    collision-buffer overflows (callers log it when nonzero, reading it at
-    a point that already syncs).
-
-    With ``mesh`` every rank presamples the whole epoch (the collision
-    buffer compacts over the whole stream, so a slice cannot be presampled
-    alone) and steps its lanes (parallel/sharded_bpr.py).
+) -> GroupedParts:
+    """The two parts of one grouped training epoch for one configuration,
+    each a function of what changes from epoch to epoch: ``pass1(rk, ks) ->
+    (enc, p, n_overflow)`` (:func:`_sample_pack_grouped_body`: shuffle,
+    presample, pack; ``ks`` read only with ``shuffle``) and ``sgd(enc, p,
+    rk, lr, uf, itf, ib) -> (uf, itf, ib)`` (:func:`grouped_sgd`), with
+    ``pack``, pass 1's keyword arguments. :func:`grouped_epoch` runs one
+    after the other.
 
     Caller contract: pos_up is padded to a multiple of batch_size (a power
     of two), n_real marks the real prefix length, and
@@ -1340,9 +1401,34 @@ def grouped_epoch(
         max_degree=pos_set.max_degree if is_bloom else 0,
     )
 
-    def epoch(rk, ks, lr, uf, itf, ib):
-        enc, p, n_overflow = _sample_pack_grouped_body(
+    def pass1(rk, ks):
+        return _sample_pack_grouped_body(
             rk, ks if shuffle else None, pos_up, bitmap.words, **pack)
+
+    return GroupedParts(pass1, sgd, pack)
+
+
+def grouped_epoch(*args, **kwargs):
+    """One grouped training epoch for one configuration (the arguments of
+    :func:`grouped_parts`), as a function of what changes from epoch to
+    epoch: ``epoch(rk, ks, lr, uf, itf, ib) -> (uf, itf, ib, n_overflow)``,
+    the round keys, the six Feistel keys (read only with ``shuffle``: a
+    placeholder of that shape otherwise), the rate as a 0-d tensor and the
+    parameters, updated in place. It is pass 1 and then the SGD loop,
+    qmf_tpu's two programs as one. Nothing in it reads a device value on
+    the host (the collision buffer has a fixed size, :func:`_compact`), so
+    a CUDA graph (ops/graphs.py) captures all of it. ``n_overflow`` is a
+    DEVICE scalar of collision-buffer overflows (callers log it when
+    nonzero, reading it at a point that already syncs).
+
+    With ``mesh`` every rank presamples the whole epoch (the collision
+    buffer compacts over the whole stream, so a slice cannot be presampled
+    alone) and steps its lanes (parallel/sharded_bpr.py).
+    """
+    pass1, sgd, _ = grouped_parts(*args, **kwargs)
+
+    def epoch(rk, ks, lr, uf, itf, ib):
+        enc, p, n_overflow = pass1(rk, ks)
         return (*sgd(enc, p, rk, lr, uf, itf, ib), n_overflow)
 
     return epoch

@@ -25,7 +25,8 @@ _BASELINE_REPS (3), _BPR_NFACTORS (30), _BPR_NUM_NEG (3), _BPR_BATCH
 (32768), _WIDTH_GRID, _SOLVER, _MAX_CLASSES, _BATCH_ROWS (8192),
 _SKIP_BPR ("1" skips BPR), _BPR_ITEM_SCATTER.
 
-Protocol. The data is ``benchmarks.datagen``'s preset (seed 42) in memory.
+Protocol. The data is ``tools.datagen``'s preset (seed 42; the port's copy
+of benchmarks/datagen.py) in memory.
 WALS runs the engine's defaults (``solver="auto"``, ``hot_width="auto"``,
 ``fuse_epoch``: on a card each epoch is a replay of a captured CUDA graph):
 ``init``, one warm-up epoch (the capture; its seconds printed as the root
@@ -81,7 +82,7 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(PKG)
 BUILD_DIR = os.path.join(PKG, "_build")
 BASELINE_FILE = os.path.join(BUILD_DIR, "baseline_measured.json")
-SEED = 42  # benchmarks.datagen's seed, as the root bench's data
+SEED = 42  # the datagen seed, as the root bench's data
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 on the tensor cores,
 # fp32 outside them
 BF16_PEAK_FLOPS, FP32_PEAK_FLOPS = 989e12, 67e12
@@ -407,7 +408,7 @@ class _Reference:
 
     def train_path(self) -> str:
         if self._path is None:
-            from benchmarks.datagen import write_ratings
+            from qmf_tpu_torch.tools.datagen import write_ratings
 
             os.makedirs(self.out_dir, exist_ok=True)
             self._path = os.path.join(self.out_dir,
@@ -585,8 +586,8 @@ _BPR_FIELDS = ("value", "unit", "vs_baseline", "spread", "epochs_s", "path")
 
 
 def load_data(preset: str):
-    """benchmarks.datagen's preset (seed 42) as arrays and a Dataset."""
-    from benchmarks.datagen import PRESETS, generate
+    """tools.datagen's preset (seed 42) as arrays and a Dataset."""
+    from qmf_tpu_torch.tools.datagen import PRESETS, generate
 
     from qmf_tpu_torch.data import Dataset
 

@@ -4,7 +4,7 @@
         [--device=cuda]
 
 The port's counterpart of benchmarks/epoch_decomp.py. One engine at ml20m
-(``benchmarks.datagen``, seed 42), k = 64, with the defaults (device pack,
+(``tools.datagen``, seed 42), k = 64, with the defaults (device pack,
 ``solver="auto"``, precision "default", batch_rows 8192) and ``hot_width``
 "auto" (the default), "0" or an int forced on both sides. It times:
 
@@ -127,26 +127,43 @@ def _hot_tables(hot, y, precision: str, upcast: bool) -> tuple:
     return hot_classes, y_hot, z
 
 
+def split_setup(engine, side: str, hot: bool = True, yty=None) -> tuple:
+    """What the split build of one side shares between its classes, against
+    the engine's current factors: (the fixed side's real rows, their
+    Gramian (computed here if ``yty`` is None), the side's per-class hot
+    arrays, y_hot, Z), the hot tables upcast as the split build runs them,
+    or Nones without a hot head (``hot`` False: the cold stream alone)."""
+    _, _, hot_state, y, n_fixed = side_state(engine, side)
+    y = y[:n_fixed]
+    if yty is None:
+        yty = als_ops.gramian(y)
+    return (y, yty, *_hot_tables(hot_state if hot else None, y,
+                                 engine.config.matmul_precision, True))
+
+
+def split_class(engine, side: str, i: int, setup: tuple) -> tuple:
+    """Width class ``i`` of one side through the split build
+    (``als_ops._build_chunked`` with the class's hot state from ``setup``,
+    :func:`split_setup`): (A, b), materialized."""
+    cfg = engine.config
+    classes, chunks = side_state(engine, side)[:2]
+    y, yty, hot_classes, y_hot, z = setup
+    _, col, val, mask = classes[i]
+    a, b, _ = als_ops._build_chunked(
+        y, yty, col, val, mask, cfg.confidence_weight,
+        cfg.regularization_lambda, cfg.matmul_precision, chunks[i],
+        None if hot_classes is None else hot_classes[i], y_hot, z)
+    return a, b
+
+
 def side_build(engine, side: str, hot: bool = True, yty=None) -> list:
     """The split build of one side against the engine's current factors:
     [(A, b)] a width class, A and b materialized, with the class's hot
     state (``hot``) or on the cold stream alone. ``yty`` is the fixed
     side's Gramian (computed here if None)."""
-    cfg = engine.config
-    classes, chunks, hot_state, y, n_fixed = side_state(engine, side)
-    y = y[:n_fixed]
-    if yty is None:
-        yty = als_ops.gramian(y)
-    hot_classes, y_hot, z = _hot_tables(hot_state if hot else None, y,
-                                        cfg.matmul_precision, True)
-    out = []
-    for i, ((_, col, val, mask), chunk_b) in enumerate(zip(classes, chunks)):
-        a, b, _ = als_ops._build_chunked(
-            y, yty, col, val, mask, cfg.confidence_weight,
-            cfg.regularization_lambda, cfg.matmul_precision, chunk_b,
-            None if hot_classes is None else hot_classes[i], y_hot, z)
-        out.append((a, b))
-    return out
+    setup = split_setup(engine, side, hot, yty)
+    return [split_class(engine, side, i, setup)
+            for i in range(len(side_state(engine, side)[0]))]
 
 
 def side_solve(engine, systems: list) -> list:
@@ -155,12 +172,13 @@ def side_solve(engine, systems: list) -> list:
             for a, b in systems]
 
 
-def side_fused(engine, side: str, hot: bool = True, yty=None) -> list:
-    """Solver "fused" on one side: each class's ``_fused_class`` (gather,
-    build, factor and solve in build_solve.cu a chunk), with the class's
-    hot head (``hot``) or on the cold stream alone: [(x, row loss)]."""
+def fused_setup(engine, side: str, hot: bool = True, yty=None) -> tuple:
+    """What solver "fused" shares between one side's classes: (the fixed
+    side in the stream's dtype, YtY + lambda I, the side's per-class hot
+    arrays, y_hot), the hot arrays None without a hot head (``hot``
+    False)."""
     cfg = engine.config
-    classes, chunks, hot_state, y, n_fixed = side_state(engine, side)
+    _, _, hot_state, y, n_fixed = side_state(engine, side)
     y = y[:n_fixed]
     if yty is None:
         yty = als_ops.gramian(y)
@@ -171,12 +189,31 @@ def side_fused(engine, side: str, hot: bool = True, yty=None) -> list:
            and y.dtype == torch.float32 else y)
     hot_classes, y_hot, _ = _hot_tables(hot_state if hot else None, y,
                                         cfg.matmul_precision, False)
-    return [als_ops._fused_class(
+    return y_s, ytyl, hot_classes, y_hot
+
+
+def fused_class(engine, side: str, i: int, setup: tuple) -> tuple:
+    """Width class ``i`` of one side under solver "fused":
+    ``als_ops._fused_class`` (gather, build, factor and solve in
+    build_solve.cu a chunk) with the class's hot head from ``setup``
+    (:func:`fused_setup`): (x, row loss)."""
+    cfg = engine.config
+    classes, chunks = side_state(engine, side)[:2]
+    y_s, ytyl, hot_classes, y_hot = setup
+    _, col, val, mask = classes[i]
+    return als_ops._fused_class(
         y_s, ytyl, col, val, mask, cfg.confidence_weight,
-        cfg.regularization_lambda, chunk_b,
+        cfg.regularization_lambda, chunks[i],
         None if hot_classes is None else hot_classes[i], y_hot)
-        for i, ((_, col, val, mask), chunk_b) in enumerate(
-            zip(classes, chunks))]
+
+
+def side_fused(engine, side: str, hot: bool = True, yty=None) -> list:
+    """Solver "fused" on one side: each class's ``_fused_class`` (gather,
+    build, factor and solve in build_solve.cu a chunk), with the class's
+    hot head (``hot``) or on the cold stream alone: [(x, row loss)]."""
+    setup = fused_setup(engine, side, hot, yty)
+    return [fused_class(engine, side, i, setup)
+            for i in range(len(side_state(engine, side)[0]))]
 
 
 def decompose(engine, reps: int = REPS) -> dict:

@@ -3,7 +3,7 @@
     python -m qmf_tpu_torch.tools.hot_micro [--reps 7] [--k 64] [--check_k 30]
 
 The port's counterpart of benchmarks/hot_micro.py, which fitted qmf_tpu's
-constants on a TPU. Data: benchmarks.datagen's ml20m preset (seed 42) less
+constants on a TPU. Data: tools.datagen's ml20m preset (seed 42) less
 chip_smoke.py's 10% test hold-out, so the training split of its phases 4
 and 14; WALSConfig(nfactors=k, matmul_precision="default",
 batch_rows=8192), the hot weights stored in bf16.
@@ -53,7 +53,7 @@ SIDES = ("user", "item")
 
 def ml20m_train():
     """The ml20m preset, seed 42, less chip_smoke.py's 10% test hold-out."""
-    from benchmarks.datagen import PRESETS, generate
+    from qmf_tpu_torch.tools.datagen import PRESETS, generate
 
     from qmf_tpu_torch.data import Dataset
 

@@ -6,7 +6,9 @@ module it copies, on inputs made from a seed: the same text file reads to
 the same arrays, the same factors write the same bytes, a checkpoint of
 either package loads in the other, and flags, split and the log line agree;
 so do the control plane's wire protocol and task files
-(distributed/protocol.py, distributed/taskdef.py) and tracing's StepTimer.
+(distributed/protocol.py, distributed/taskdef.py) and tracing's StepTimer;
+and the port's copy of benchmarks/datagen.py (tools/datagen.py) makes the
+same ratings and writes the same bytes.
 """
 
 import dataclasses
@@ -16,6 +18,7 @@ import logging
 import numpy as np
 import pytest
 
+from benchmarks import datagen as root_datagen
 from qmf_tpu import config as jax_config
 from qmf_tpu.cli import gen_uniform as jax_gen_uniform_cli
 from qmf_tpu.data import gen_uniform as jax_gen_uniform
@@ -40,6 +43,7 @@ from qmf_tpu_torch.distributed import protocol as port_protocol
 from qmf_tpu_torch.distributed import taskdef as port_taskdef
 from qmf_tpu_torch.utils import logging as port_logging
 from qmf_tpu_torch.utils import tracing as port_tracing
+from qmf_tpu_torch.tools import datagen as port_datagen
 
 # the packages' utils/__init__.py bind the name ``split`` to the function
 jax_split = importlib.import_module("qmf_tpu.utils.split")
@@ -314,3 +318,47 @@ def test_step_timer_alike(monkeypatch):
     assert timers[0].records == timers[1].records == {
         "epoch": [0.5, 2.0], "save": [0.25]}
     assert timers[0].summary() == timers[1].summary()
+
+
+DATAGEN_SHAPES = {
+    "ml100k": port_datagen.PRESETS["ml100k"],
+    # fewer items than 0.8 x a user's degree: the degree clip and the trim
+    # of the deduplicated pairs back to target_nnz both act
+    "small": dict(n_users=60, n_items=40, target_nnz=500, min_degree=3),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(DATAGEN_SHAPES))
+def test_datagen_generate_equal(shape):
+    """tools/datagen.generate gives benchmarks/datagen.generate's arrays,
+    array for array, at seed 42; the presets are the same."""
+    kw = DATAGEN_SHAPES[shape]
+    got = port_datagen.generate(**kw, seed=42)
+    want = root_datagen.generate(**kw, seed=42)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert port_datagen.PRESETS == root_datagen.PRESETS
+    if shape == "small":  # the trim to target_nnz acted
+        assert len(got[0]) == kw["target_nnz"]
+
+
+def test_datagen_write_ratings_byte_identical(tmp_path):
+    users, items, values = root_datagen.generate(
+        **DATAGEN_SHAPES["small"], seed=42)
+    for mod, name in ((port_datagen, "port.txt"), (root_datagen, "root.txt")):
+        mod.write_ratings(str(tmp_path / name), users, items, values)
+    got = (tmp_path / "port.txt").read_bytes()
+    assert got == (tmp_path / "root.txt").read_bytes() and got
+
+
+def test_datagen_load_npz_equal(tmp_path):
+    """ensure_dataset and load_npz in a cache directory of the caller's:
+    the file the original writes, and the preset's arrays."""
+    got = port_datagen.load_npz("ml100k", str(tmp_path / "port"))
+    want = root_datagen.load_npz("ml100k", str(tmp_path / "root"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (tmp_path / "port" / "ml100k.txt").read_bytes() == \
+        (tmp_path / "root" / "ml100k.txt").read_bytes()

@@ -242,9 +242,11 @@ def test_port_imports_no_jax():
 
 def test_port_imports_nothing_of_qmf_tpu():
     """Importing every module of the port and chip_smoke leaves no qmf_tpu
-    module, and not the root bench.py, in sys.modules, and no .py file of
-    the port has an import of either: the port keeps its own copies of the
-    host layer and of the bench's protocol (tools/bench.py)."""
+    module, not the root bench.py and nothing of benchmarks/ in
+    sys.modules, and no .py file of the port has an import of any of them:
+    the port keeps its own copies of the host layer, of the bench's
+    protocol (tools/bench.py) and of the data generator
+    (tools/datagen.py)."""
     import ast
 
     code = (
@@ -254,8 +256,8 @@ def test_port_imports_nothing_of_qmf_tpu():
         "    importlib.import_module(m.name)\n"
         "import qmf_tpu_torch.models.bpr, qmf_tpu_torch.cli.bpr\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m in ('qmf_tpu', 'bench') "
-        "or m.startswith('qmf_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('qmf_tpu', 'bench', "
+        "'benchmarks') or m.startswith(('qmf_tpu.', 'benchmarks.')))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -270,7 +272,8 @@ def test_port_imports_nothing_of_qmf_tpu():
             mods = [node.module or ""]
         else:
             return False
-        return any(m in ("qmf_tpu", "bench") or m.startswith("qmf_tpu.")
+        return any(m in ("qmf_tpu", "bench", "benchmarks")
+                   or m.startswith(("qmf_tpu.", "benchmarks."))
                    for m in mods)
 
     pkg = os.path.join(REPO, "qmf_tpu_torch")
@@ -287,7 +290,9 @@ def test_port_imports_nothing_of_qmf_tpu():
                 "distributed/submit.py", "cli/wals_scheduler.py",
                 "cli/wals_labor.py", "cli/wals_submit.py",
                 "utils/tracing.py", "data/native.py", "ops/device_pack.py",
-                "tools/bench.py", "tools/epoch_decomp.py"):
+                "tools/bench.py", "tools/epoch_decomp.py",
+                "tools/datagen.py", "tools/bpr_decomp.py",
+                "tools/build_attrib.py"):
         assert os.path.join(pkg, new) in files
     bad = []
     for path in files + [os.path.join(REPO, "chip_smoke.py")]:
