@@ -104,7 +104,12 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    single-device engines on the card; and which
    collectives gloo runs on CUDA tensors; (c) ShardedBPREngine over NCCL at
    world 1 with phase 9d's configuration, one warm-up and one timed epoch,
-   updates/s beside 9d's, then one epoch under torch.profiler as 9p; (d)
+   updates/s beside 9d's, then one epoch under torch.profiler as 9p, then
+   its parts: tools/bpr_decomp.decompose (the replayed epoch, pass 1 and
+   the SGD loop in turns) and tools/bpr_grouped_micro's base, mesh and
+   collective (the step's all_gather alone) on its stream, every ms
+   finite and positive, pass 1 + loop and collective x steps beside its
+   epoch and 9d's (16b's parts); (d)
    the wals CLI under torchrun's environment at world 1, --solver=fused
    on phase 3's files: each build_solve variant's launches against phase
    6's CLI run's, AUC against that run's.
@@ -204,6 +209,17 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    torch.equal to a graph of the epoch program under
    torch.use_deterministic_algorithms; then the phase's seconds on a
    ``phase 16 total`` line.
+17. the grouped step's probe, right after 16b and before 13, on phase
+   9d's engine as 16b leaves it (its epoch graph's nodes held to PR 16's
+   52,177): tools/bpr_grouped_micro in engine mode (the first 100 steps
+   of the engine's pass 1 stream, the JAX probe's seven variants) and in
+   synthetic mode (the JAX probe's inputs and six default variants),
+   each variant's steps a CUDA graph, all replayed in turns: ms a step,
+   nodes a step, the difference from base, base's bytes bound and its
+   share, updates/s, every ms finite and positive; base held to the
+   production loop on the same steps under
+   torch.use_deterministic_algorithms, torch.equal; then the phase's
+   seconds on a ``phase 17 total`` line.
 
 Phases 3, 4, 6, 10a, 10d, 11a and 14 run with fuse_epoch=True (the default):
 on the card each epoch is a replay of a captured graph, and the launch
@@ -2173,6 +2189,9 @@ def sharded(data, split: dict, fused: dict, bpr: dict, cli_files: dict,
               bpr_triplet_updates_per_s=round(rate, 1),
               single_device_updates_per_s=round(bpr["updates_per_s"], 1),
               train_losses=[f"{e[1]:.6g}" for e in epochs])
+        t1 = time.time()
+        _line("10c sharded bpr parts", t1,
+              **sharded_bpr_parts(engine, mesh, epoch_s, bpr))
         del engine
         torch.cuda.empty_cache()
     finally:
@@ -3485,7 +3504,7 @@ def build_attribution(engines: dict, decomp: dict) -> dict:
     return time.time() - t0
 
 
-def bpr_decomposition(engine, device: str = "cuda") -> float:
+def bpr_decomposition(engine, device: str = "cuda") -> tuple:
     """Phase 16b, between 12b and 13: tools/bpr_decomp on phase 9d's
     engine as 12b returns it (batch 32,768, word sampler, its epoch graph
     captured), then on two fresh engines of 9d's data (bpr_decomp.init_like
@@ -3496,13 +3515,15 @@ def bpr_decomposition(engine, device: str = "cuda") -> float:
     SPLIT_CHECKED, split_check: pass 1 and the loop, each its own CUDA
     graph, against a graph of the engine's epoch program, every replay
     under torch.use_deterministic_algorithms, torch.equal. Phase 13 trains
-    9d's engine again from its start. Returns the phase's seconds."""
+    9d's engine again from its start. Returns the phase's seconds and 9d's
+    epoch, pass 1 and loop ms (phase 10c prints them beside its own)."""
     import torch
 
     from qmf_tpu_torch.models import BPREngine
     from qmf_tpu_torch.tools import bpr_decomp
 
     t0 = time.time()
+    nine_d = {}
 
     def fresh(batch, bloom):
         eng = BPREngine(bpr_decomp.bpr_config(batch, bloom), device=device)
@@ -3545,11 +3566,150 @@ def bpr_decomposition(engine, device: str = "cuda") -> float:
                  if k.endswith("_each")},
               **{k: round(v, 3) for k, v in ms.items()},
               split_check=check)
+        if name == "9d":
+            nine_d = {k: parts[f"{k}_ms"] for k in ("epoch", "pass1", "sgd")}
         del parts
         if eng is not engine:
             del eng
         torch.cuda.empty_cache()
+    return time.time() - t0, nine_d
+
+
+# Phases 17 and 10c: tools/bpr_grouped_micro's steps and rounds (its
+# defaults), and PR 16's node count of phase 9d's epoch graph, which the
+# loop's split into step helpers keeps
+MICRO_STEPS, MICRO_REPS = 100, 5
+EPOCH_NODES_9D = 52177
+
+
+def _micro_ms(parts: dict) -> dict:
+    """Every ms a step of a tools/bpr_grouped_micro run, by name."""
+    ms = {}
+    for v, r in parts["variants"].items():
+        ms[v] = r["ms_per_step"]
+        ms.update({f"{v}_{i}": m for i, m in enumerate(r["ms_per_step_each"])})
+    return ms
+
+
+def grouped_micro(engine, device: str = "cuda") -> float:
+    """Phase 17, right after 16b and before 13: tools/bpr_grouped_micro on
+    phase 9d's engine as 16b leaves it (batch 32,768, word sampler): first
+    ``engine`` mode, the JAX probe's seven variants on the first
+    MICRO_STEPS steps of the engine's pass 1 stream, then ``synthetic``
+    mode at the JAX probe's defaults (its six variants, batch 32,768, 100
+    steps); each variant's steps captured as a CUDA graph and all replayed
+    in turns, MICRO_REPS rounds, every ms finite and positive; in each mode
+    ``base`` held to the production loop on the same steps
+    (bpr_ops._sgd_epoch_scan_grouped_body) under
+    torch.use_deterministic_algorithms, torch.equal; 9d's epoch graph's
+    nodes against PR 16's 52,177. One line a mode (the table on stderr);
+    returns the phase's seconds."""
+    import torch
+
+    from qmf_tpu_torch.tools import bpr_grouped_micro as micro
+
+    t0 = time.time()
+    nodes = getattr(engine._program, "nodes", None)
+    if nodes != EPOCH_NODES_9D:
+        raise AssertionError(f"17: 9d's epoch graph has {nodes} nodes, PR "
+                             f"16's had {EPOCH_NODES_9D}")
+    for mode in ("engine", "synthetic"):
+        t1 = time.time()
+        if mode == "engine":
+            inp = micro.engine_inputs(engine, MICRO_STEPS)
+            variants = micro.JAX_VARIANTS
+        else:
+            inp = micro.synthetic_inputs(device=device)
+            variants = micro.DEFAULT_VARIANTS
+        with _deterministic():
+            check = micro.production_check(inp)
+        parts = micro.measure(inp, variants, MICRO_REPS)
+        bound = parts["bound"]
+        if _finite_positive({**_micro_ms(parts),
+                             "bound": bound["bound_ms_per_step"]}) \
+                or not check["equal"]:
+            raise AssertionError(f"17 {mode}: parts {parts}, base against "
+                                 f"the production loop {check}")
+        for ln in micro.report(parts).splitlines():
+            print("  17", mode, ln, file=sys.stderr, flush=True)
+        r = parts["variants"]
+        _line(f"17 grouped step {mode}", t1, batch=parts["batch"],
+              steps=parts["steps"], sampler=parts["sampler"],
+              item_scatter=parts["item_scatter"],
+              ms_per_step={v: round(x["ms_per_step"], 4)
+                           for v, x in r.items()},
+              minus_base_ms={v: round(x["minus_base_ms"], 4)
+                             for v, x in r.items()},
+              nodes_per_step={v: x["nodes_per_step"] for v, x in r.items()},
+              base_ms_per_step_each=[round(m, 4) for m in
+                                     r["base"]["ms_per_step_each"]],
+              bound_ms_per_step=round(bound["bound_ms_per_step"], 5),
+              bound_mb_per_step=round(bound["bytes_per_step"] / 1e6, 3),
+              all_rows_mb_per_step=round(
+                  bound["all_rows_bytes_per_step"] / 1e6, 3),
+              distinct_users_items_per_step=[
+                  round(bound["distinct_users_per_step"], 1),
+                  round(bound["distinct_items_per_step"], 1)],
+              share_of_bound=round(bound["share"], 4),
+              updates_per_s=round(parts["updates_per_s"], 1),
+              base_equals_production=check["equal"],
+              epoch_nodes=nodes if mode == "engine" else None,
+              pr16_epoch_nodes=EPOCH_NODES_9D if mode == "engine" else None)
+        del inp, parts
+        torch.cuda.empty_cache()
     return time.time() - t0
+
+
+def sharded_bpr_parts(engine, mesh, epoch_s: float, bpr: dict) -> dict:
+    """Phase 10c's parts of ShardedBPREngine at world 1 over NCCL:
+    tools/bpr_decomp.decompose on it (its replayed epoch, pass 1 and the
+    SGD loop timed in turns, pass 1's stages, the bench step's host parts),
+    then tools/bpr_grouped_micro's ``base``, ``mesh`` and ``collective`` on
+    the first MICRO_STEPS steps of its pass 1 stream, over its mesh; every
+    ms finite and positive. Returns the two sums, pass 1 + loop and
+    collective x the epoch's steps, beside 10c's epoch (replayed, and
+    optimize's timed epoch ``epoch_s``) and 9d's (16b's replay, and 9d's
+    timed epoch)."""
+    import torch
+
+    from qmf_tpu_torch.tools import bpr_decomp
+    from qmf_tpu_torch.tools import bpr_grouped_micro as micro
+
+    parts = bpr_decomp.decompose(engine, BPR_DECOMP_REPS)
+    torch.cuda.empty_cache()
+    inp = micro.engine_inputs(engine, MICRO_STEPS)
+    step = micro.measure(inp, ("base", "mesh", "collective"), MICRO_REPS,
+                         mesh=mesh)
+    del inp
+    torch.cuda.empty_cache()
+    ms = {k: v for k, v in parts.items()
+          if k.endswith("_ms") and k != "stages_ms"}
+    ms.update({f"stage_{k}": v for k, v in parts["stages_ms"].items()})
+    ms.update(_micro_ms(step))
+    if _finite_positive(ms):
+        raise AssertionError(f"10c parts: {parts}, steps {step}")
+    for ln in micro.report(step).splitlines():
+        print("  10c", ln, file=sys.stderr, flush=True)
+    steps = engine._grp_up.shape[0] // engine._grp_batch
+    r = step["variants"]
+    return {
+        "nodes": parts["nodes"],
+        **{f"{k}_ms": round(parts[f"{k}_ms"], 3)
+           for k in ("epoch", "pass1", "sgd", "host_epoch")},
+        "pass1_plus_sgd_ms": round(parts["pass1_ms"] + parts["sgd_ms"], 3),
+        **{f"{k}_ms_each": [round(x, 3) for x in parts[f"{k}_ms_each"]]
+           for k in ("epoch", "pass1", "sgd")},
+        "steps": steps,
+        "step_ms": {v: round(x["ms_per_step"], 4) for v, x in r.items()},
+        "collective_times_steps_ms": round(
+            r["collective"]["ms_per_step"] * steps, 3),
+        "mesh_minus_base_times_steps_ms": round(
+            r["mesh"]["minus_base_ms"] * steps, 3),
+        "epoch_10c_timed_ms": round(1e3 * epoch_s, 3),
+        "epoch_9d_parts_ms": {k: round(v, 3)
+                              for k, v in bpr.get("decomp", {}).items()},
+        "epoch_9d_timed_ms": round(1e3 * bpr["epoch_s"], 3),
+    }
 
 
 @contextlib.contextmanager
@@ -3895,8 +4055,11 @@ def main() -> int:
         bpr = bpr_scale(data)
         profile_bpr_epoch(bpr["engine"], bpr["epoch_s"])
         bpr_engine = bpr_graphs(data, bpr)
-        phase16_s = attrib_s + bpr_decomposition(bpr_engine)
+        decomp_s, bpr["decomp"] = bpr_decomposition(bpr_engine)
+        phase16_s = attrib_s + decomp_s
         print(f"phase 16 total: ok seconds={phase16_s:.1f}", flush=True)
+        print(f"phase 17 total: ok seconds={grouped_micro(bpr_engine):.1f}",
+              flush=True)
         bpr_programs(bpr_engine, bpr)
         del bpr_engine
         torch.cuda.empty_cache()

@@ -1174,6 +1174,103 @@ def _decode_negatives(
     return negs, r_all
 
 
+def _step_decode(
+    ue: torch.Tensor,  # (B,) int32 encoded rows of one step
+    row0: int,  # the stream position of lane 0 of the step
+    lane: torch.Tensor,  # (B,) int32 the rows' lanes
+    rk: torch.Tensor,
+    lr: torch.Tensor,  # 0-d, the factors' dtype
+    tables,  # _slot_tables(...)
+    u_shift: int,
+    n_items: int,
+    n_rounds: int,
+    use_word: bool,
+    wpu: int,
+):
+    """The first of a grouped step's reads: its rows decoded, as (w, u,
+    negs): the valid bit times the rate (B,), the users (B,) and the
+    negatives (B, num_neg) (:func:`_decode_negatives`)."""
+    # the valid bit times the rate: every gradient term carries w, so the
+    # updates come out already scaled by the rate
+    w = (ue & 1).to(lr.dtype) * lr
+    u = _shift_right_logical(ue, u_shift)
+    negs, _ = _decode_negatives(ue, row0 + lane, rk, tables, n_items,
+                                n_rounds, use_word, wpu)
+    return w, u, negs
+
+
+def _step_gathers(params: BPRParams, u: torch.Tensor, p: torch.Tensor,
+                  negs: torch.Tensor, use_biases: bool):
+    """The rest of a grouped step's reads, the rows its gradients read:
+    (pu, qp, qn, bp, bn), qn (B, num_neg, k), the biases None without
+    ``use_biases``."""
+    uf, itf, ib = params
+    pu = uf[u]
+    qp = itf[p]
+    qn = itf[negs]  # (B, num_neg, k)
+    bp = bn = None
+    if use_biases:
+        bp = ib[p]
+        bn = ib[negs]  # (B, num_neg)
+    return pu, qp, qn, bp, bn
+
+
+def _step_grads(w, pu, qp, qn, bp, bn, user_lambda: float,
+                item_lambda: float, bias_lambda: float):
+    """A grouped step's gradients from its reads (:func:`_step_decode`'s
+    ``w``, :func:`_step_gathers`' rows), already scaled by the rate: (du,
+    dp, dn, dbp, dbn), dn (B, num_neg, k) slot j's update of its
+    negative's row, dbp and dbn None without biases."""
+    num_neg = qn.shape[1]
+    wcol = w[:, None]
+    d = ((pu * qp).sum(1))[:, None] - (pu[:, None, :] * qn).sum(2)
+    if bp is not None:
+        d = d + bp[:, None] - bn
+    e = (1.0 / (1.0 + torch.exp(d))) * wcol  # (B, num_neg)
+    e_sum = e.sum(1)
+    # user update: sum of the num_neg triplet gradients
+    du = (e[:, :, None] * (qp[:, None, :] - qn)).sum(1) \
+        - num_neg * user_lambda * pu * wcol
+    dp = e_sum[:, None] * pu - num_neg * item_lambda * qp * wcol
+    dn = -e[:, :, None] * pu[:, None, :] - item_lambda * qn * wcol[:, :, None]
+    dbp = dbn = None
+    if bp is not None:
+        dbp = e_sum - num_neg * bias_lambda * bp * w
+        dbn = -e - bias_lambda * bn * wcol
+    return du, dp, dn, dbp, dbn
+
+
+def _step_writes(params: BPRParams, u, p, negs, du, dp, dn, dbp, dbn,
+                 item_scatter: str) -> None:
+    """A grouped step's writes: the scatter-adds of its gradients
+    (:func:`_step_grads`) into the parameters, in place, by
+    ``item_scatter`` (:func:`_sgd_epoch_scan_grouped_body`)."""
+    uf, itf, ib = params
+    uf.index_add_(0, u, du)
+    if item_scatter in ("merged", "dense"):
+        # slot-major, as qmf_tpu concatenates: p, negatives of slot 0, ...
+        all_idx = torch.cat([p, negs.T.reshape(-1)])
+        all_upd = torch.cat([dp, dn.transpose(0, 1).reshape(-1, dn.shape[2])])
+        if item_scatter == "dense":
+            itf.add_(torch.zeros_like(itf).index_add_(0, all_idx, all_upd))
+        else:
+            itf.index_add_(0, all_idx, all_upd)
+        if dbp is not None:
+            bupd = torch.cat([dbp, dbn.T.reshape(-1)])
+            if item_scatter == "dense":
+                ib.add_(torch.zeros_like(ib).index_add_(0, all_idx, bupd))
+            else:
+                ib.index_add_(0, all_idx, bupd)
+    else:
+        itf.index_add_(0, p, dp)
+        for j in range(negs.shape[1]):
+            itf.index_add_(0, negs[:, j], dn[:, j])
+        if dbp is not None:
+            ib.index_add_(0, p, dbp)
+            for j in range(negs.shape[1]):
+                ib.index_add_(0, negs[:, j], dbn[:, j])
+
+
 def _sgd_epoch_scan_grouped_body(
     params: BPRParams,
     u_enc: torch.Tensor,  # (S*B,) int32: user + per-slot round bits + valid
@@ -1224,6 +1321,10 @@ def _sgd_epoch_scan_grouped_body(
     a step. ``tables`` are :func:`_slot_tables` for this configuration,
     made here if None: a graph takes them made beforehand, since their
     host-to-device copy cannot be captured.
+
+    A step is :func:`_step_decode` and :func:`_step_gathers` (its reads),
+    :func:`_step_grads`, :func:`_whole_batch` and :func:`_step_writes`,
+    the helpers tools/bpr_grouped_micro.py builds its variants from.
     """
     s = u_enc.shape[0] // batch_size
     dev = u_enc.device
@@ -1234,66 +1335,18 @@ def _sgd_epoch_scan_grouped_body(
     use_word = sampler == "word"
     if tables is None:
         tables = _slot_tables(num_neg, n_rounds, use_word, dev)
-    uf, itf, ib = params
-    lr = torch.as_tensor(lr, dtype=uf.dtype, device=dev)
+    lr = torch.as_tensor(lr, dtype=params.user_factors.dtype, device=dev)
 
     for t in range(s):
         ue, p = ue_steps[t, lo:hi], p_steps[t, lo:hi]
-        # the valid bit times the rate: every gradient term carries w, so
-        # the updates come out already scaled by the rate
-        w = (ue & 1).to(uf.dtype) * lr
-        u = _shift_right_logical(ue, u_shift)
-        wcol = w[:, None]
-        negs, _ = _decode_negatives(
-            ue, t * batch_size + lane, rk, tables, n_items, n_rounds,
-            use_word, wpu)
+        w, u, negs = _step_decode(ue, t * batch_size, lane, rk, lr, tables,
+                                  u_shift, n_items, n_rounds, use_word, wpu)
         # every read of the step, before its first write
-        pu = uf[u]
-        qp = itf[p]
-        qn = itf[negs]  # (B, num_neg, k)
-        d = ((pu * qp).sum(1))[:, None] - (pu[:, None, :] * qn).sum(2)
-        if use_biases:
-            bp = ib[p]
-            bn = ib[negs]  # (B, num_neg)
-            d = d + bp[:, None] - bn
-        e = (1.0 / (1.0 + torch.exp(d))) * wcol  # (B, num_neg)
-        e_sum = e.sum(1)
-        # user update: sum of the num_neg triplet gradients
-        du = (e[:, :, None] * (qp[:, None, :] - qn)).sum(1) \
-            - num_neg * user_lambda * pu * wcol
-        dp = e_sum[:, None] * pu - num_neg * item_lambda * qp * wcol
-        # (B, num_neg, k): slot j's update of its negative's row
-        dn = -e[:, :, None] * pu[:, None, :] - item_lambda * qn * wcol[:, :, None]
-        dbp = dbn = None
-        if use_biases:
-            dbp = e_sum - num_neg * bias_lambda * bp * w
-            dbn = -e - bias_lambda * bn * wcol
-        u, p, negs, du, dp, dn, dbp, dbn = _whole_batch(
-            (u, p, negs, du, dp, dn, dbp, dbn), batch_size, mesh)
-
-        uf.index_add_(0, u, du)
-        if item_scatter in ("merged", "dense"):
-            # slot-major, as qmf_tpu concatenates: p, negatives of slot 0, ...
-            all_idx = torch.cat([p, negs.T.reshape(-1)])
-            all_upd = torch.cat([dp, dn.transpose(0, 1).reshape(-1, dn.shape[2])])
-            if item_scatter == "dense":
-                itf.add_(torch.zeros_like(itf).index_add_(0, all_idx, all_upd))
-            else:
-                itf.index_add_(0, all_idx, all_upd)
-            if use_biases:
-                bupd = torch.cat([dbp, dbn.T.reshape(-1)])
-                if item_scatter == "dense":
-                    ib.add_(torch.zeros_like(ib).index_add_(0, all_idx, bupd))
-                else:
-                    ib.index_add_(0, all_idx, bupd)
-        else:
-            itf.index_add_(0, p, dp)
-            for j in range(num_neg):
-                itf.index_add_(0, negs[:, j], dn[:, j])
-            if use_biases:
-                ib.index_add_(0, p, dbp)
-                for j in range(num_neg):
-                    ib.index_add_(0, negs[:, j], dbn[:, j])
+        rows = _step_gathers(params, u, p, negs, use_biases)
+        grads = _step_grads(w, *rows, user_lambda, item_lambda, bias_lambda)
+        u, p, negs, *grads = _whole_batch((u, p, negs, *grads), batch_size,
+                                          mesh)
+        _step_writes(params, u, p, negs, *grads, item_scatter)
     return params
 
 

@@ -48,7 +48,7 @@ budget gives the exact bitmap. :func:`decompose` times, in ms:
   end, divided by ``reps``.
 
 On a card each part is captured as a CUDA graph and replayed
-(tools/epoch_decomp.py ``_replayable``), and a replay is timed between
+(tools/timing.py ``captured``), and a replay is timed between
 CUDA events; the stages are each the mean of ``reps`` replays
 (``_part_ms``). :func:`split_check` holds pass 1 then the SGD loop, each
 its own program, against the engine's epoch program, on one set of keys,
@@ -71,7 +71,8 @@ import torch
 
 from qmf_tpu_torch.ops import bpr_ops, graphs
 from qmf_tpu_torch.tools.bench import _sync
-from qmf_tpu_torch.tools.epoch_decomp import _part_ms, _replayable
+from qmf_tpu_torch.tools.epoch_decomp import _part_ms
+from qmf_tpu_torch.tools.timing import captured, in_turns
 
 REPS = 5
 SEED = 42
@@ -178,35 +179,6 @@ def init_like(engine, other) -> None:
     engine._init_from_positives(sorted_u, sorted_i, mark)
 
 
-def _call_ms(fn, device: torch.device) -> float:
-    """ms of one call of ``fn``: CUDA events on a card, the host's clock on
-    the CPU."""
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(device)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end)
-    t0 = time.perf_counter()
-    fn()
-    return 1e3 * (time.perf_counter() - t0)
-
-
-def _in_turns(fns: dict, device: torch.device, reps: int) -> dict:
-    """``{name: [ms, ...]}``: after one warm-up call of each of ``fns``,
-    ``reps`` rounds of one timed call of each in turn."""
-    for fn in fns.values():
-        fn()
-    out = {name: [] for name in fns}
-    for _ in range(reps):
-        for name, fn in fns.items():
-            out[name].append(_call_ms(fn, device))
-    return out
-
-
 def host_parts(engine, reps: int) -> dict:
     """The bench's step on the host's clock (see the module's docstring),
     medians of ``reps`` rounds, in ms."""
@@ -271,11 +243,11 @@ def decompose(engine, reps: int = REPS) -> dict:
     enc, p, _ = parts.pass1(rk, ks)
     lr = engine._rate()
     params = [t.clone() for t in engine.params]
-    each = _in_turns({
+    each = in_turns({
         "epoch": epoch,
-        "pass1": _replayable(lambda: parts.pass1(rk, ks), device),
-        "sgd": _replayable(lambda: parts.sgd(enc, p, rk, lr, *params),
-                           device)}, device, reps)
+        "pass1": captured(lambda: parts.pass1(rk, ks), device)[0],
+        "sgd": captured(lambda: parts.sgd(enc, p, rk, lr, *params),
+                        device)[0]}, device, reps)
     del enc, p, params
     out = {"batch": engine._grp_batch,
            "membership": parts.pack["membership"],

@@ -47,7 +47,8 @@ import time
 
 import torch
 
-from qmf_tpu_torch.ops import als_ops, graphs
+from qmf_tpu_torch.ops import als_ops
+from qmf_tpu_torch.tools.timing import captured
 
 REPS = 5
 SIDES = ("user", "item")
@@ -74,23 +75,10 @@ def _timed_ms(fn, device: torch.device, reps: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def _replayable(fn, device: torch.device):
-    """``fn`` as the epoch runs it: on a card captured as a CUDA graph
-    (graphs.EpochGraph: its first call the warm-up and the capture) and
-    replayed, so that the part is paced by the device as the replayed epoch
-    is, not by the host's launches; on the CPU ``fn`` itself. ``fn`` reads
-    its tensors where they lie; the graph's one input is a placeholder."""
-    if device.type != "cuda":
-        return fn
-    token = torch.zeros(1, device=device)
-    graph = graphs.EpochGraph(lambda _: fn())
-    graph(token)
-    return lambda: graph.replay(token)
-
-
 def _part_ms(fn, device: torch.device, reps: int) -> float:
-    """Mean ms of one replay of ``fn`` captured (:func:`_replayable`)."""
-    return _timed_ms(_replayable(fn, device), device, reps)
+    """Mean ms of one replay of ``fn`` captured (tools/timing.py
+    ``captured``)."""
+    return _timed_ms(captured(fn, device)[0], device, reps)
 
 
 def _epoch_ms(engine, reps: int) -> list:
