@@ -220,6 +220,14 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    production loop on the same steps under
    torch.use_deterministic_algorithms, torch.equal; then the phase's
    seconds on a ``phase 17 total`` line.
+18. the recovery cost, right after 11 on 11a's ratings file:
+   tools/recovery_cost's pair (k = 64, 3 epochs, solver "auto", a
+   scheduler and one labor as two gloo ranks on cuda:0, epochs stretched
+   as 11c's): run A uninterrupted, run B with the labor's worker killed
+   after the first checkpoint; each wall, the kill, the detection, the
+   resumed attempt's epochs, wall and start-up stages, each run's
+   launches (on this line only), B's factors normwise within 5x phase 2's
+   f32 bound of A's, and the card's name and power limit.
 
 Phases 3, 4, 6, 10a, 10d, 11a and 14 run with fuse_epoch=True (the default):
 on the card each epoch is a replay of a captured graph, and the launch
@@ -2334,34 +2342,14 @@ def sharded(data, split: dict, fused: dict, bpr: dict, cli_files: dict,
 CP_POLL_S, CP_TASK_S, CP_SLEEP_S, CP_TEST_USERS = 0.5, 400.0, 1.5, 3000
 
 
-def _write_ratings(path: str, dataset, parts: int = 8) -> float:
-    """tools.datagen.write_ratings of ``dataset`` into ``path``: its
-    ``parts`` slices written by as many processes side by side, then joined
-    (one np.savetxt of ml20m's 18M rows takes ~1 min). Returns the
-    seconds."""
-    import multiprocessing
-    import shutil
-    from concurrent.futures import ProcessPoolExecutor
-
-    import numpy as np
-
-    from qmf_tpu_torch.tools.datagen import write_ratings
+def _write_ratings(path: str, dataset) -> float:
+    """tools.datagen.write_ratings_parallel of ``dataset`` into ``path``;
+    returns the seconds."""
+    from qmf_tpu_torch.tools.datagen import write_ratings_parallel
 
     t0 = time.time()
-    cuts = np.linspace(0, len(dataset), parts + 1).astype(int)
-    names = [f"{path}.part{k}" for k in range(parts)]
-    # a worker that dies raises here (BrokenProcessPool) instead of hanging
-    with ProcessPoolExecutor(parts, multiprocessing.get_context(
-            "spawn")) as pool:
-        for done in [pool.submit(write_ratings, name, dataset.user_ids[a:b],
-                                 dataset.item_ids[a:b], dataset.values[a:b])
-                     for name, a, b in zip(names, cuts[:-1], cuts[1:])]:
-            done.result(timeout=600)
-    with open(path, "wb") as out:
-        for name in names:
-            with open(name, "rb") as part:
-                shutil.copyfileobj(part, out)
-            os.remove(name)
+    write_ratings_parallel(path, dataset.user_ids, dataset.item_ids,
+                           dataset.values)
     return time.time() - t0
 
 
@@ -2564,7 +2552,8 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
     11b: a scheduler and one labor as two gloo ranks on cuda:0, phase 3's
     ml100k files: float32 fused, float64 auto. 11c: 11b's float64 task
     again with the labor's worker killed mid-run. 11d: one epoch under
-    utils.tracing.trace. Returns the launches of each kernel. With
+    utils.tracing.trace. Returns the launches of each kernel, and 11a's
+    ratings file, which phase 18 reads and removes. With
     ``device="cpu"`` every rank runs on the host (n_local_devices=1): a
     rehearsal, whose launch checks fail."""
     import numpy as np
@@ -2644,8 +2633,9 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
           cli_s=round(cli_s, 3), bitwise_equal_to_cli=same,
           normwise_err_vs_cli=err, test_auc=auc,
           phase4_test_auc=split["auc"], device=res["device"])
-    for path in files.values():
-        os.remove(path)
+    for name, path in files.items():
+        if name != "ml20m.txt":  # phase 18's ratings
+            os.remove(path)
     torch.cuda.empty_cache()
 
     # 11b, 11c: two gloo ranks on cuda:0 (a scheduler and a labor)
@@ -2785,7 +2775,38 @@ def control_plane(data, split: dict, fused: dict, cli_files: dict,
           chol_solve_kernels_inside=len(inside), launches=n,
           chol_solve_device_ms=round(
               sum(e["dur"] for e in inside) / 1e3, 3))
-    return launches
+    return launches, files["ml20m.txt"]
+
+
+def recovery(ratings: str, tmp: str, smi: str, device: str = "cuda") -> None:
+    """Phase 18: tools/recovery_cost's pair on 11a's ml20m ratings (k =
+    64, 3 epochs, solver "auto"), a scheduler and one labor as two gloo
+    ranks on cuda:0, epochs stretched as 11c's: run A uninterrupted, run B
+    with the labor's worker killed after the first checkpoint. Removes
+    ``ratings``. With ``device="cpu"`` the ranks run on the host: a
+    rehearsal, whose launch check fails."""
+    from qmf_tpu_torch.tools import recovery_cost
+
+    t0 = time.time()
+    out = os.path.join(tmp, "recovery")
+    os.makedirs(out)
+    nepochs = 3
+    tasks = [recovery_cost.make_task(out, tag, 0, nepochs, K_MAIN,
+                                     train=ratings)
+             for tag in ("base", "kill")]
+    try:
+        with recovery_cost.epoch_sleep(CP_SLEEP_S):
+            pair = recovery_cost.measure_pair(
+                *tasks, "cpu" if device == "cpu" else f"{device}:0")
+    finally:
+        os.remove(ratings)
+    if not (pair["attempts"] == [1, 2]
+            and 0 < pair["resumed"]["epochs"] < nepochs
+            and all(la["chol_solve"] > 0 for la in pair["launches"])
+            and pair["b_vs_a"]["normwise"] <= 5 * F32_TOL):
+        raise AssertionError(f"18: {pair}")
+    _line("18 recovery cost", t0, epoch_sleep_s=CP_SLEEP_S, card=repr(smi),
+          **pair)
 
 
 def _event_ms(fn) -> tuple:
@@ -4068,8 +4089,10 @@ def main() -> int:
               **sharded(data, main_path, fused, bpr, cli_files))
         torch.cuda.empty_cache()
         t0 = time.time()
-        _line("11 control plane launches", t0,
-              **control_plane(data, main_path, fused, cli_files, tmp))
+        launches, ml20m_txt = control_plane(data, main_path, fused,
+                                            cli_files, tmp)
+        _line("11 control plane launches", t0, **launches)
+        recovery(ml20m_txt, tmp, smi)
     print(f"phase total: ok seconds={time.time() - t_start:.1f}", flush=True)
     source = "qmf_tpu_torch/csrc/build_solve.cu"
     # build_solve without the hot head runs on the sides where hot_width

@@ -57,12 +57,13 @@ def _rank_main(rank: int, fn: Callable, n: int, backend: Optional[str],
 
 
 def spawn(fn: Callable, n: int, backend: Optional[str] = None,
-          device: str = "cpu", args: Sequence = (),
+          device: str = "cuda", args: Sequence = (),
           deadline_s: Optional[float] = DEADLINE_S) -> None:
     """Run ``fn(mesh, *args)`` on ``n`` new local ranks of one group.
 
-    ``device`` is each rank's ("cuda" gives rank r the card cuda:r;
-    "cuda:0" puts every rank on card 0, which only gloo allows);
+    ``device`` is each rank's: the card by default ("cuda" gives rank r
+    the card cuda:r; "cuda:0" puts every rank on card 0, which only gloo
+    allows), the host with "cpu";
     ``backend`` defaults to NCCL for CUDA and gloo for the CPU. The CUDA
     kernels are built here first, so the ranks do not queue behind one
     nvcc run with the group's timeout running. Raises if a rank raises

@@ -14,6 +14,7 @@ same ratings and writes the same bytes.
 import dataclasses
 import importlib
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -351,6 +352,20 @@ def test_datagen_write_ratings_byte_identical(tmp_path):
         mod.write_ratings(str(tmp_path / name), users, items, values)
     got = (tmp_path / "port.txt").read_bytes()
     assert got == (tmp_path / "root.txt").read_bytes() and got
+
+
+def test_datagen_write_ratings_parallel_byte_identical(tmp_path):
+    """The port's writer in several processes writes the original's bytes,
+    with parts that the rows do not divide, and leaves no part behind."""
+    users, items, values = root_datagen.generate(
+        **DATAGEN_SHAPES["small"], seed=42)
+    root_datagen.write_ratings(str(tmp_path / "root.txt"), users, items,
+                               values)
+    port_datagen.write_ratings_parallel(str(tmp_path / "port.txt"), users,
+                                        items, values, parts=3)
+    got = (tmp_path / "port.txt").read_bytes()
+    assert got == (tmp_path / "root.txt").read_bytes() and got
+    assert sorted(os.listdir(tmp_path)) == ["port.txt", "root.txt"]
 
 
 def test_datagen_load_npz_equal(tmp_path):

@@ -214,6 +214,38 @@ def test_multihost_without_a_coordinator_is_a_world_of_one(monkeypatch):
     assert (mesh.size, mesh.rank, mesh.group) == (1, 0, None)
 
 
+def test_spawn_defaults_to_the_card_and_every_caller_names_its_device():
+    """launch.spawn, an entry point, runs its ranks on the card unless the
+    caller asks for the CPU; every call of it in the package, chip_smoke.py
+    and the tests passes its own device."""
+    import ast
+
+    assert inspect.signature(launch.spawn).parameters["device"].default \
+        == "cuda"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(repo, "chip_smoke.py")] + [
+        os.path.join(d, f)
+        for top in ("qmf_tpu_torch", "tests")
+        for d, _, fs in os.walk(os.path.join(repo, top)) for f in fs
+        if f.endswith(".py") and (top == "qmf_tpu_torch"
+                                  or f.startswith("test_torch_"))]
+    calls = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        calls += [(path, node) for node in ast.walk(tree)
+                  if isinstance(node, ast.Call) and (
+                      getattr(node.func, "attr", None) == "spawn"
+                      or getattr(node.func, "id", None) == "spawn")
+                  and not (isinstance(node.func, ast.Attribute)
+                           and getattr(node.func.value, "id", "") == "mp")]
+    assert len(calls) >= 8
+    missing = [f"{path}:{node.lineno}" for path, node in calls
+               if not any(kw.arg in ("device", None)
+                          for kw in node.keywords)]
+    assert not missing, missing
+
+
 def test_kernel_launches_run_under_their_tensors_device():
     """Every launch wrapper and device query of kernels.py makes its
     tensor's device current around the library call."""

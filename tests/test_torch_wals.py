@@ -293,7 +293,7 @@ def test_port_imports_nothing_of_qmf_tpu():
                 "tools/bench.py", "tools/epoch_decomp.py",
                 "tools/datagen.py", "tools/bpr_decomp.py",
                 "tools/build_attrib.py", "tools/bpr_grouped_micro.py",
-                "tools/timing.py"):
+                "tools/timing.py", "tools/recovery_cost.py"):
         assert os.path.join(pkg, new) in files
     bad = []
     for path in files + [os.path.join(REPO, "chip_smoke.py")]:
