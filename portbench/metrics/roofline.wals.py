@@ -1,0 +1,4 @@
+"""roofline.wals: the least time of the traced calls' work over their device
+time, in % (``portbench/shares.py``)."""
+
+from portbench.shares import roofline as read  # noqa: F401
