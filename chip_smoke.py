@@ -210,9 +210,10 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    torch.use_deterministic_algorithms; then the phase's seconds on a
    ``phase 16 total`` line.
 17. the grouped step's probe, right after 16b and before 13, on phase
-   9d's engine as 16b leaves it (its epoch graph's nodes held to PR 16's
-   52,177): tools/bpr_grouped_micro in engine mode (the first 100 steps
-   of the engine's pass 1 stream, the JAX probe's seven variants) and in
+   9d's engine as 16b leaves it (its epoch graph's nodes held to 52,177
+   and the 6 of its three parts' stamps): tools/bpr_grouped_micro in
+   engine mode (the first 100 steps of the engine's pass 1 stream, the
+   JAX probe's seven variants) and in
    synthetic mode (the JAX probe's inputs and six default variants),
    each variant's steps a CUDA graph, all replayed in turns: ms a step,
    nodes a step, the difference from base, base's bytes bound and its
@@ -3597,10 +3598,11 @@ def bpr_decomposition(engine, device: str = "cuda") -> tuple:
 
 
 # Phases 17 and 10c: tools/bpr_grouped_micro's steps and rounds (its
-# defaults), and PR 16's node count of phase 9d's epoch graph, which the
-# loop's split into step helpers keeps
+# defaults), and the node count of phase 9d's epoch graph: 52,177, which
+# the loop's split into step helpers keeps, and the stamp kernels at entry
+# and exit of the epoch's three parts (utils/tracing.py part)
 MICRO_STEPS, MICRO_REPS = 100, 5
-EPOCH_NODES_9D = 52177
+EPOCH_NODES_9D = 52177 + 6
 
 
 def _micro_ms(parts: dict) -> dict:
@@ -3623,8 +3625,8 @@ def grouped_micro(engine, device: str = "cuda") -> float:
     ``base`` held to the production loop on the same steps
     (bpr_ops._sgd_epoch_scan_grouped_body) under
     torch.use_deterministic_algorithms, torch.equal; 9d's epoch graph's
-    nodes against PR 16's 52,177. One line a mode (the table on stderr);
-    returns the phase's seconds."""
+    nodes against 52,177 and its parts' 6 stamps. One line a mode (the
+    table on stderr); returns the phase's seconds."""
     import torch
 
     from qmf_tpu_torch.tools import bpr_grouped_micro as micro
@@ -3632,8 +3634,8 @@ def grouped_micro(engine, device: str = "cuda") -> float:
     t0 = time.time()
     nodes = getattr(engine._program, "nodes", None)
     if nodes != EPOCH_NODES_9D:
-        raise AssertionError(f"17: 9d's epoch graph has {nodes} nodes, PR "
-                             f"16's had {EPOCH_NODES_9D}")
+        raise AssertionError(f"17: 9d's epoch graph has {nodes} nodes, "
+                             f"expected {EPOCH_NODES_9D}")
     for mode in ("engine", "synthetic"):
         t1 = time.time()
         if mode == "engine":

@@ -27,7 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -40,6 +40,7 @@ UNITS = (
     ("csrc/chol_solve.cu", ("-DQMF_CHOL_DTYPE=64",)),
     ("csrc/build_solve.cu", ()),
     ("csrc/gather.cu", ()),
+    ("csrc/stamp.cu", ()),
 )
 HEADERS = ("csrc/chol_core.cuh",)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -204,6 +205,8 @@ def load() -> ctypes.CDLL:
         lib.qmf_gather.restype = ci
         lib.qmf_l2_reset.argtypes = [ci, vp, ctypes.POINTER(ll)]
         lib.qmf_l2_reset.restype = ci
+        lib.qmf_stamp.argtypes = [vp, vp, ll, ll, ci, vp]
+        lib.qmf_stamp.restype = ci
         lib.qmf_cuda_error_string.argtypes = [ci]
         lib.qmf_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -460,3 +463,32 @@ def reset_l2_persistence(device: torch.device) -> int:
             f"L2 reset failed: CUDA error {err}: "
             f"{lib.qmf_cuda_error_string(err).decode()}")
     return limit.value
+
+
+def stamp_launcher(ring: torch.Tensor,
+                   count: torch.Tensor) -> Callable[[int], None]:
+    """A function ``launch(tag)`` that launches csrc/stamp.cu on the
+    current stream: (tag, the device's nanosecond clock) into
+    ``ring[count % len(ring)]``, then ``count`` + 1.
+
+    ring (entries, 2) int64 and count (1,) int64 on one CUDA device, both
+    contiguous, kept alive by the caller. A captured launch is a graph node
+    that stamps at every replay. The pointers and the device are read here
+    once, and the library gives the caller's current device back itself,
+    so no device guard is taken: a stamp costs the host its launch. Does
+    not synchronise. Raises on a refused launch.
+    """
+    fn = load().qmf_stamp
+    index = _index(ring.device)
+    head = (ring.data_ptr(), count.data_ptr(), ring.shape[0])
+    # the current stream's raw handle, without making a Stream object
+    stream = torch._C._cuda_getCurrentRawStream
+
+    def launch(tag: int) -> None:
+        err = fn(*head, tag, index, stream(index))
+        if err != 0:
+            raise RuntimeError(
+                f"stamp launch failed (tag {tag}): CUDA error {err}: "
+                f"{load().qmf_cuda_error_string(err).decode()}")
+
+    return launch

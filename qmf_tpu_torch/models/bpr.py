@@ -57,8 +57,8 @@ from qmf_tpu_torch.models.engine import Engine
 from qmf_tpu_torch.ops import als_ops, bpr_ops, graphs
 from qmf_tpu_torch.ops.bpr_ops import BPRParams
 from qmf_tpu_torch.utils import checkpoint as ckpt
+from qmf_tpu_torch.utils import tracing
 from qmf_tpu_torch.utils.logging import log
-from qmf_tpu_torch.utils.tracing import annotate
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -539,25 +539,31 @@ class BPREngine(Engine):
 
     def _epoch(self) -> None:
         """One epoch: this epoch's draws, then the epoch's program on them
-        (shuffle + sample + all steps)."""
+        (shuffle + sample + all steps). The program's call is the host span
+        ``bpr_launch``: on a card the inputs' copies and the graph's launch,
+        elsewhere the eager epoch."""
         program = self._epoch_program()
         if self._grouped:
-            *params, self._last_overflow = program(*self._grouped_inputs(),
-                                                   *self.params)
+            inputs = self._grouped_inputs()
+            with tracing.annotate("bpr_launch"):
+                *params, self._last_overflow = program(*inputs, *self.params)
         elif self._legacy_packed():
             ks, cands = self._draw_legacy()
             if ks is None:
                 ks = bpr_ops.no_keys(3, self.device)
-            params = program(ks, cands, self._rate(), *self.params)
+            rate = self._rate()
+            with tracing.annotate("bpr_launch"):
+                params = program(ks, cands, rate, *self.params)
         else:
             perm, cands = self._draw_legacy()
             if perm is None:
                 perm = bpr_ops.stream_rows(self._tri_users.shape[0],
                                            self.device)
             step = torch.zeros((), dtype=torch.int64, device=self.device)
-            _, *params = graphs.run_steps(
-                program, (step, perm, cands, self._rate(), *self.params),
-                cands.shape[0])
+            inputs = (step, perm, cands, self._rate(), *self.params)
+            with tracing.annotate("bpr_launch"):
+                _, *params = graphs.run_steps(program, inputs,
+                                              cands.shape[0])
         # a graph's outputs are its static buffers: the parameters it
         # updates in place, which the next replay reads where they are
         self.params = BPRParams(*params)
@@ -620,11 +626,13 @@ class BPREngine(Engine):
         start_epoch = self._maybe_resume()
         for epoch in range(start_epoch, cfg.nepochs + 1):
             t0 = time.time()
-            with annotate(f"bpr_epoch_{epoch}"):
+            with tracing.annotate(f"bpr_epoch_{epoch}"):
                 self._epoch()
             # divergence guard (reference CHECK(isfinite), BPREngine.cpp:184);
-            # reading it waits for the epoch's device work
-            if not bool(torch.isfinite(self.params.user_factors).all()):
+            # reading it waits for the epoch's device work (span bpr_wait)
+            with tracing.annotate("bpr_wait"):
+                finite = bool(torch.isfinite(self.params.user_factors).all())
+            if not finite:
                 raise FloatingPointError(
                     "gradients too big, try decreasing the learning rate "
                     "(--init_learning_rate)"
@@ -638,10 +646,14 @@ class BPREngine(Engine):
             self._maybe_checkpoint(epoch)
 
     def _eval_set_loss(self, eval_set) -> float:
+        """The mean loss over ``eval_set`` (the part ``bpr_eval``), -1 for
+        none."""
         if eval_set is None or not eval_set[0].shape[0]:
             return -1.0
-        return float(bpr_ops.eval_loss(
-            self.params, *eval_set, use_biases=self.config.use_biases))
+        with tracing.part("bpr_eval", self.device):
+            loss = bpr_ops.eval_loss(
+                self.params, *eval_set, use_biases=self.config.use_biases)
+        return float(loss)
 
     def evaluate(self, epoch: int, elapsed: float = 0.0) -> None:
         cfg = self.config

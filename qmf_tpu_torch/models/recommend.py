@@ -23,6 +23,7 @@ import torch
 
 from qmf_tpu_torch.ops import als_ops
 from qmf_tpu_torch.ops.bpr_ops import PosSet, _is_member
+from qmf_tpu_torch.utils import tracing
 
 
 def _top_n(scores: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,27 +59,36 @@ def recommend_top_n(
     device is used where it is); scores come in their dtype. ``seen`` (a
     :class:`PosSet`, e.g. built from the training ratings) excludes
     already-interacted items. ``device=None`` is the CUDA card.
+
+    The request is the part ``serve_request`` (utils/tracing.py), the
+    scores, the exclusion and the head its parts ``serve_scores``,
+    ``serve_seen`` and ``serve_topn``.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         # a score matmul in TF32 keeps three digits; serving may run with
         # no engine ever built to turn it off
         torch.backends.cuda.matmul.allow_tf32 = False
-    users = torch.as_tensor(np.asarray(user_idx, dtype=np.int32))
-    all_users = torch.as_tensor(user_factors)
-    uf = all_users[users.to(all_users.device)].to(dev)
-    itf = torch.as_tensor(item_factors).to(dev)
-    ib = None if item_biases is None else torch.as_tensor(item_biases).to(dev)
-    scores = als_ops.compute_scores(uf, itf, item_biases=ib)
-    if seen is not None:
-        pos_set = PosSet(seen.indptr.to(dev), seen.items.to(dev),
-                         seen.max_degree)
-        item_ids = torch.arange(scores.shape[1], dtype=torch.int32,
-                                device=dev)
-        grid = scores.shape
-        is_seen = _is_member(pos_set,
-                             users.to(dev).unsqueeze(1).expand(grid),
-                             item_ids.unsqueeze(0).expand(grid))
-        scores = scores.masked_fill_(is_seen, -torch.inf)
-    idx, top = _top_n(scores, n)
+    with tracing.part("serve_request", dev):
+        users = torch.as_tensor(np.asarray(user_idx, dtype=np.int32))
+        all_users = torch.as_tensor(user_factors)
+        uf = all_users[users.to(all_users.device)].to(dev)
+        itf = torch.as_tensor(item_factors).to(dev)
+        ib = None if item_biases is None else \
+            torch.as_tensor(item_biases).to(dev)
+        with tracing.part("serve_scores", dev):
+            scores = als_ops.compute_scores(uf, itf, item_biases=ib)
+        if seen is not None:
+            with tracing.part("serve_seen", dev):
+                pos_set = PosSet(seen.indptr.to(dev), seen.items.to(dev),
+                                 seen.max_degree)
+                item_ids = torch.arange(scores.shape[1], dtype=torch.int32,
+                                        device=dev)
+                grid = scores.shape
+                is_seen = _is_member(pos_set,
+                                     users.to(dev).unsqueeze(1).expand(grid),
+                                     item_ids.unsqueeze(0).expand(grid))
+                scores = scores.masked_fill_(is_seen, -torch.inf)
+        with tracing.part("serve_topn", dev):
+            idx, top = _top_n(scores, n)
     return idx.to(torch.int32).cpu().numpy(), top.cpu().numpy()

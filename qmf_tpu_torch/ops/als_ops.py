@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from qmf_tpu_torch.ops import build_solve, spd_solve
+from qmf_tpu_torch.utils import tracing
 
 
 def gramian(y: torch.Tensor) -> torch.Tensor:
@@ -159,11 +160,13 @@ def _solve_chunked(y, yty, col_idx, values, mask, alpha, lam, solver,
     b = torch.empty_like(x)
     conf_sum = torch.empty((n,), dtype=y.dtype, device=y.device)
     for s, e in _chunks(n, chunk_b):
-        a, b[s:e], conf_sum[s:e] = _build_bucket(
-            y, yty, col_idx[s:e], values[s:e], mask[s:e], alpha, lam,
-            precision, _hot_rows(hot, s, e), y_hot, z,
-        )
-        x[s:e] = _solve_dispatch(a, b[s:e], solver)
+        with tracing.part("wals_build", y.device):
+            a, b[s:e], conf_sum[s:e] = _build_bucket(
+                y, yty, col_idx[s:e], values[s:e], mask[s:e], alpha, lam,
+                precision, _hot_rows(hot, s, e), y_hot, z,
+            )
+        with tracing.part("wals_solve", y.device):
+            x[s:e] = _solve_dispatch(a, b[s:e], solver)
     return x, b, conf_sum
 
 
@@ -175,20 +178,27 @@ def _solve_bucket_body(y, yty, col_idx, values, mask, alpha, lam, solver,
     The build runs in chunks of ``chunk_b`` rows. With ``class_solve`` the
     whole bucket is then solved by one batched solve; without, each chunk
     is solved as it is built (:func:`_solve_chunked`). Every system is
-    solved alone either way, so both give the same x and loss.
+    solved alone either way, so both give the same x and loss. The builds
+    are parts ``wals_build``, the solves and the loss ``wals_solve``
+    (utils/tracing.py).
     """
     if class_solve:
-        a, b, conf_sum = _build_chunked(
-            y, yty, col_idx, values, mask, alpha, lam, precision, chunk_b,
-            hot, y_hot, z,
-        )
-        x = _solve_dispatch(a, b, solver)
+        with tracing.part("wals_build", y.device):
+            a, b, conf_sum = _build_chunked(
+                y, yty, col_idx, values, mask, alpha, lam, precision,
+                chunk_b, hot, y_hot, z,
+            )
+        with tracing.part("wals_solve", y.device):
+            x = _solve_dispatch(a, b, solver)
+            loss = _loss_from_solution(x, b, conf_sum, lam)
     else:
         x, b, conf_sum = _solve_chunked(
             y, yty, col_idx, values, mask, alpha, lam, solver, precision,
             chunk_b, hot, y_hot, z,
         )
-    return x, _loss_from_solution(x, b, conf_sum, lam)
+        with tracing.part("wals_solve", y.device):
+            loss = _loss_from_solution(x, b, conf_sum, lam)
+    return x, loss
 
 
 def _fused_class(y_s, ytyl, col_idx, values, mask, alpha, lam, chunk_b,
@@ -269,8 +279,10 @@ def _solve_side(y, class_arrays, chunk_sizes: Sequence[int], n_rows: int,
         for (row_ids, col_idx, values, mask), chunk_b, hot_cls in zip(
             class_arrays, chunk_sizes, hot_classes
         ):
-            x, row_loss = _fused_class(y_s, ytyl, col_idx, values, mask,
-                                       alpha, lam, chunk_b, hot_cls, y_hot)
+            with tracing.part("wals_build_solve", y.device):
+                x, row_loss = _fused_class(y_s, ytyl, col_idx, values, mask,
+                                           alpha, lam, chunk_b, hot_cls,
+                                           y_hot)
             loss = loss + row_loss.sum()
             x_out.index_copy_(0, row_ids, _whole_class(x, mesh))
         return x_out[:n_rows], _sum_over_ranks(loss, mesh)
@@ -330,14 +342,16 @@ def epoch_body(user_arrays, item_arrays, alpha, lam, solver: str,
     factors alone: ``epoch(item_factors) -> (u_new, v_new, loss_v)``. This
     is the epoch an engine runs as one program, eagerly or captured as a
     CUDA graph (ops/graphs.py EpochGraph): it reads no device value on the
-    host, so a capture holds all of it."""
+    host, so a capture holds all of it. Both half-epochs are the part
+    ``wals_epoch`` (utils/tracing.py), stamped at every replay."""
 
     def epoch(item_factors):
-        u_new, v_new, _, loss_v = train_epoch(
-            None, item_factors, user_arrays, item_arrays, alpha, lam, solver,
-            precision, n_users, n_items, user_chunks, item_chunks, user_hot,
-            item_hot, mesh, class_solve,
-        )
+        with tracing.part("wals_epoch", item_factors.device):
+            u_new, v_new, _, loss_v = train_epoch(
+                None, item_factors, user_arrays, item_arrays, alpha, lam,
+                solver, precision, n_users, n_items, user_chunks,
+                item_chunks, user_hot, item_hot, mesh, class_solve,
+            )
         return u_new, v_new, loss_v
 
     return epoch

@@ -70,6 +70,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from qmf_tpu_torch.utils import tracing
 from qmf_tpu_torch.utils.logging import log
 
 
@@ -1477,12 +1478,19 @@ def grouped_epoch(*args, **kwargs):
     With ``mesh`` every rank presamples the whole epoch (the collision
     buffer compacts over the whole stream, so a slice cannot be presampled
     alone) and steps its lanes (parallel/sharded_bpr.py).
+
+    The epoch is the part ``bpr_epoch`` (utils/tracing.py), pass 1 and the
+    loop its parts ``bpr_pass1`` and ``bpr_sgd``, stamped at every replay.
     """
     pass1, sgd, _ = grouped_parts(*args, **kwargs)
 
     def epoch(rk, ks, lr, uf, itf, ib):
-        enc, p, n_overflow = pass1(rk, ks)
-        return (*sgd(enc, p, rk, lr, uf, itf, ib), n_overflow)
+        with tracing.part("bpr_epoch", rk.device):
+            with tracing.part("bpr_pass1", rk.device):
+                enc, p, n_overflow = pass1(rk, ks)
+            with tracing.part("bpr_sgd", rk.device):
+                params = sgd(enc, p, rk, lr, uf, itf, ib)
+        return (*params, n_overflow)
 
     return epoch
 
