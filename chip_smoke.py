@@ -69,8 +69,11 @@ PyTorch built for CUDA and nvcc. It imports no jax. Phases, one line each:
    --exclude_seen on its training file (every line parses, no listed item
    was seen, scores descend); then recommend_top_n on phase 4's ml20m
    factors for all users in batches of 4,096, n = 10, seen items excluded:
-   users/s, peak memory, and 64 sampled users against a numpy float64
-   ranking wherever the score gap to the next item exceeds 1e-4;
+   users/s, peak memory, exclude_seen.cu's launches (one a batch), and 64
+   sampled users against a numpy float64 ranking wherever the score gap to
+   the next item exceeds 1e-4; then exclude_seen.cu on the first batch's
+   scores and seen set, against its plain version bit for bit, and both
+   timed in turns beside the kernel's bytes bound;
 9. BPR (plain tensor ops: qmf_tpu's BPR path reaches no kernel): (a) the
    hashes and one grouped presample+pack of 2^20 rows, word, bitmap and
    Bloom membership, on the card against the same calls on CPU tensors,
@@ -1508,15 +1511,50 @@ def _parse_recommendations(path: str) -> dict:
     return out
 
 
-def serving(cli_files: dict, data, engine, device: str = "cuda") -> None:
+def _exclude_seen_timed(uf, itf, seen, users) -> dict:
+    """exclude_seen.cu on one batch's scores (``users``' rows of the
+    factors) and seen set: against its plain version bit for bit, then
+    both timed back to back (a launch of ~20 us timed alone reads the
+    host's dispatch, not the card), with the bytes bound (each seen id read
+    once and as many elements written, the users and two indptr reads a
+    row)."""
+    import torch
+
+    from qmf_tpu_torch.ops import als_ops, exclude_seen
+
+    users = torch.as_tensor(users, device=uf.device)
+    scores = als_ops.compute_scores(uf[users], itf)
+    want = exclude_seen.exclude_seen_plain(scores.clone(), seen, users)
+    got = exclude_seen.exclude_seen_(scores.clone(), seen, users)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+        raise AssertionError("exclude_seen.cu differs from its plain version "
+                             f"on a batch of {users.shape[0]} users")
+    at = users.long()
+    nnz = int((seen.indptr[at + 1] - seen.indptr[at]).sum())
+    kernel_ms = _time_ms(
+        lambda: exclude_seen.exclude_seen_(scores, seen, users), reps=200)
+    plain_ms = _time_ms(
+        lambda: exclude_seen.exclude_seen_plain(scores, seen, users), reps=20)
+    nbytes = nnz * (4 + scores.element_size()) + users.shape[0] * 3 * 4
+    bound_ms, bound_by = _bound(nbytes, 0.0)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "nnz": nnz,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "excluded": int(torch.isinf(want).sum())}
+
+
+def serving(cli_files: dict, data, engine, device: str = "cuda") -> dict:
     """Phase 8: the recommend CLI on phase 3's files, then recommend_top_n
-    over every user of phase 4's ml20m factors, seen items excluded."""
+    over every user of phase 4's ml20m factors, seen items excluded, then
+    exclude_seen.cu on the first batch. Returns the kernel's launches in
+    the served run, its check and its times."""
     import numpy as np
     import torch
 
     from qmf_tpu_torch.cli import recommend as cli
     from qmf_tpu_torch.data import load_factors, read_dataset
     from qmf_tpu_torch.models.recommend import recommend_top_n
+    from qmf_tpu_torch.ops import exclude_seen
     from qmf_tpu_torch.ops.bpr_ops import make_pos_set
 
     t0 = time.time()
@@ -1569,10 +1607,16 @@ def serving(cli_files: dict, data, engine, device: str = "cuda") -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()  # the engine, the factors, seen
+    exclude_seen.launches = 0
     t1 = time.time()
     idx, scores = serve_all()
     t_serve = time.time() - t1
     peak = torch.cuda.max_memory_allocated()
+    launches = exclude_seen.launches
+    if launches != -(-engine.nusers // SERVE_BATCH):
+        raise AssertionError(f"exclude_seen.cu launched {launches} times for "
+                             f"{engine.nusers} users in batches of "
+                             f"{SERVE_BATCH}")
     if idx.shape != (engine.nusers, SERVE_N) or scores.shape != idx.shape:
         raise AssertionError(f"served shapes {idx.shape}, {scores.shape}")
     if scores.dtype != np.float32 or not np.isfinite(scores).all():
@@ -1605,6 +1649,7 @@ def serving(cli_files: dict, data, engine, device: str = "cuda") -> None:
     if compared < SERVE_SAMPLE // 4:
         raise AssertionError(f"only {compared} of {SERVE_SAMPLE} sampled "
                              f"users have gaps above {SERVE_GAP}")
+    kernel = _exclude_seen_timed(uf, itf, seen, users[:SERVE_BATCH])
     torch.cuda.empty_cache()
     _line("8 serving", t0, cli_preset="ml100k", cli_users=len(recs),
           topn=SERVE_N, users=engine.nusers, items=engine.nitems, k=K_MAIN,
@@ -1614,7 +1659,13 @@ def serving(cli_files: dict, data, engine, device: str = "cuda") -> None:
           users_per_s=round(engine.nusers / t_serve, 1), peak_bytes=peak,
           resident_before_bytes=resident,
           sampled_users=SERVE_SAMPLE, lists_compared=compared,
-          max_abs_score_err_vs_f64=worst)
+          max_abs_score_err_vs_f64=worst, exclude_seen_launches=launches,
+          exclude_seen_batch_nnz=kernel["nnz"],
+          exclude_seen_excluded=kernel["excluded"],
+          exclude_seen_ms=round(kernel["ms"], 5),
+          exclude_seen_plain_ms=round(kernel["plain_ms"], 5),
+          exclude_seen_bound_ms=round(kernel["bound_ms"], 5))
+    return dict(kernel, launches=launches)
 
 
 def _bpr_positives(n_rows: int, n_users: int, n_items: int, seed: int,
@@ -4059,7 +4110,7 @@ def main() -> int:
         fused = fused_path(data, main_path, h0_engine)
         fused_engine = fused.pop("engine")
         gathers = gather_check(h0_engine)
-        serving(cli_files, data, split_engine)
+        serve = serving(cli_files, data, split_engine)
         graph_epochs({"split": split_engine, "fused_hot": fused_engine})
         class_solve = class_solve_check(split_engine)
         hot = hot_width_check(data, main_path,
@@ -4167,6 +4218,18 @@ def main() -> int:
         "plain_ms": fused["plain_ms"],
         "bound_ms": fused["bound_ms"],
         "bound_by": fused["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "exclude_seen",
+        "route": "cuda",
+        "source": "qmf_tpu_torch/csrc/exclude_seen.cu",
+        "replaces": None,  # qmf_tpu masks seen items with plain jnp
+        "launches": serve["launches"],
+        "max_abs_err": 0.0,  # torch.equal held in phase 8
+        "ms": serve["ms"],
+        "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"],
+        "bound_by": serve["bound_by"],
         "library_ms": None,
     }, gather_entry("vec", "benchmarks/gather_micro.py:73", "micro"),
         gather_entry("warp", "benchmarks/gather_micro.py:99", "micro"),

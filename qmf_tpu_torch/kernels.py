@@ -41,6 +41,7 @@ UNITS = (
     ("csrc/build_solve.cu", ()),
     ("csrc/gather.cu", ()),
     ("csrc/stamp.cu", ()),
+    ("csrc/exclude_seen.cu", ()),
 )
 HEADERS = ("csrc/chol_core.cuh",)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -207,6 +208,9 @@ def load() -> ctypes.CDLL:
         lib.qmf_l2_reset.restype = ci
         lib.qmf_stamp.argtypes = [vp, vp, ll, ll, ci, vp]
         lib.qmf_stamp.restype = ci
+        lib.qmf_exclude_seen.argtypes = [vp, ll, ll, ci, vp, vp, vp, ll, ci,
+                                         vp]
+        lib.qmf_exclude_seen.restype = ci
         lib.qmf_cuda_error_string.argtypes = [ci]
         lib.qmf_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -492,3 +496,34 @@ def stamp_launcher(ring: torch.Tensor,
                 f"{load().qmf_cuda_error_string(err).decode()}")
 
     return launch
+
+
+# The score dtypes csrc/exclude_seen.cu writes -inf into, by the number
+# qmf_exclude_seen knows them by.
+EXCLUDE_SEEN_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+
+def launch_exclude_seen(scores: torch.Tensor, indptr: torch.Tensor,
+                        items: torch.Tensor, users: torch.Tensor) -> None:
+    """Launch csrc/exclude_seen.cu on the current stream: scores[b, j] =
+    -inf for every j in items[indptr[users[b]] : indptr[users[b] + 1]]
+    that lies in [0, scores.shape[1]).
+
+    scores (B, I) contiguous, of a dtype in :data:`EXCLUDE_SEEN_DTYPES`;
+    indptr (U + 1,), items and users (B,) int32; all contiguous on one CUDA
+    device. The library gives the caller's current device back itself, so
+    no device guard is taken. Does not synchronise. Raises on a refused
+    launch.
+    """
+    lib = load()
+    index = _index(scores.device)
+    err = lib.qmf_exclude_seen(
+        scores.data_ptr(), scores.shape[0], scores.shape[1],
+        EXCLUDE_SEEN_DTYPES[scores.dtype], indptr.data_ptr(),
+        items.data_ptr(), users.data_ptr(), indptr.shape[0] - 1, index,
+        torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(
+            f"exclude_seen launch failed (B={scores.shape[0]}, "
+            f"I={scores.shape[1]}, {scores.dtype}): "
+            f"CUDA error {err}: {lib.qmf_cuda_error_string(err).decode()}")

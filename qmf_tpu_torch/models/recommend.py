@@ -2,9 +2,11 @@
 
 Port of qmf_tpu/models/recommend.py. The reference stops at saving factor
 files; serving is left to the caller. Here score = bias + <p_u, q_i> is one
-matmul over a batch of users, already-seen items are pushed to -inf through
-the CSR positive set's membership test over the (users, items) grid, and
-the head comes from ``torch.topk``.
+matmul over a batch of users, already-seen items are pushed to -inf by a
+scatter at each user's entries of the CSR positive set
+(``ops/exclude_seen.py``; bit for bit the scores of qmf_tpu's membership
+test over the (users, items) grid, for work in the batch's seen entries
+alone), and the head comes from ``torch.topk``.
 
 Ties. ``jax.lax.top_k`` returns the lower index first among equal scores;
 ``torch.topk`` promises no order, and it may pick any of the items tied at
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from qmf_tpu_torch.ops import als_ops
-from qmf_tpu_torch.ops.bpr_ops import PosSet, _is_member
+from qmf_tpu_torch.ops.bpr_ops import PosSet
+from qmf_tpu_torch.ops.exclude_seen import exclude_seen_
 from qmf_tpu_torch.utils import tracing
 
 
@@ -80,15 +83,10 @@ def recommend_top_n(
             scores = als_ops.compute_scores(uf, itf, item_biases=ib)
         if seen is not None:
             with tracing.part("serve_seen", dev):
-                pos_set = PosSet(seen.indptr.to(dev), seen.items.to(dev),
-                                 seen.max_degree)
-                item_ids = torch.arange(scores.shape[1], dtype=torch.int32,
-                                        device=dev)
-                grid = scores.shape
-                is_seen = _is_member(pos_set,
-                                     users.to(dev).unsqueeze(1).expand(grid),
-                                     item_ids.unsqueeze(0).expand(grid))
-                scores = scores.masked_fill_(is_seen, -torch.inf)
+                exclude_seen_(scores, PosSet(seen.indptr.to(dev),
+                                             seen.items.to(dev),
+                                             seen.max_degree),
+                              users.to(dev))
         with tracing.part("serve_topn", dev):
             idx, top = _top_n(scores, n)
     return idx.to(torch.int32).cpu().numpy(), top.cpu().numpy()

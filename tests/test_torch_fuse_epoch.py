@@ -31,7 +31,8 @@ from qmf_tpu_torch.data import Dataset
 from qmf_tpu_torch.metrics import MetricsEngine
 from qmf_tpu_torch.models import WALSEngine
 from qmf_tpu_torch import kernels
-from qmf_tpu_torch.ops import als_ops, build_solve, gather, graphs, spd_solve
+from qmf_tpu_torch.ops import (als_ops, build_solve, exclude_seen, gather,
+                               graphs, spd_solve)
 from qmf_tpu_torch.parallel import Mesh, launch
 from qmf_tpu_torch.parallel.dryrun import (read_result, run_jobs,
                                            write_ratings_npz)
@@ -401,12 +402,13 @@ def test_every_wrapper_counter_is_registered():
     assert len(names) == len(set(names))
     assert set(names) == {
         "spd_solve.launches", "spd_solve.launches_t", "build_solve.launches",
-        "build_solve.launches_hot",
+        "build_solve.launches_hot", "exclude_seen.launches",
         *(f"gather.launches[{k}]" for k in gather.launches)}
     before = kernels.read_counters()
     try:
         kernels.write_counters([7] * len(names))
         assert spd_solve.launches == build_solve.launches_hot == 7
+        assert exclude_seen.launches == 7
         assert set(gather.launches.values()) == {7}
     finally:
         kernels.write_counters(before)
