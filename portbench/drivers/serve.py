@@ -12,7 +12,10 @@ the rule that the lower index comes first among them, are exercised in
 every request.
 
 The check draws ``checked_requests`` of the window's requests from the seed
-and scores them in float64 (``portbench/reference/serve.py``):
+as they are served (a reservoir: every request of the window is kept with
+the same chance, and an answer that is not kept is let go at once, so the
+window holds no more answers than the check reads) and, once the window
+has closed, scores them in float64 (``portbench/reference/serve.py``):
 
 - ``seen``: served items the user rated (limit 0);
 - ``ties``: a served twin whose lower twin is neither served before it nor
@@ -27,6 +30,7 @@ and scores them in float64 (``portbench/reference/serve.py``):
 
 from __future__ import annotations
 
+import random
 import time
 
 import numpy as np
@@ -40,6 +44,9 @@ class Driver:
     def __init__(self, config, traffic, seed, device):
         self.config, self.traffic = config, traffic
         self.seed, self.device = seed, device
+        self.requests = 0
+        self.kept = []  # (request, answer): the reservoir the check reads
+        self.draws = random.Random(seed)
 
     def setup(self) -> dict:
         from qmf_tpu_torch.models.recommend import recommend_top_n
@@ -74,7 +81,6 @@ class Driver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         init_s = time.perf_counter() - t0
-        self.served = []
         t0 = time.perf_counter()
         self.call()
         return {"init_s": init_s, "warmup_s": time.perf_counter() - t0}
@@ -86,12 +92,25 @@ class Driver:
                        mode="wrap")
 
     def call(self):
-        n = len(self.served)
+        n = self.requests
         idx, top = self.recommend(self.user_factors, self.item_factors,
                                   self._batch(n), n=self.traffic["topn"],
                                   seen=self.seen, device=self.device)
-        self.served.append((idx, top))
+        self.requests += 1
+        if n:  # request 0 warmed up
+            self._keep(n, (idx, top))
         return idx.shape[0], 1
+
+    def _keep(self, n: int, answer) -> None:
+        """Reservoir sampling (Algorithm R) of the window's requests
+        1, 2, ...: after m of them each is kept with chance k / m."""
+        k = self.traffic["checked_requests"]
+        if len(self.kept) < k:
+            self.kept.append((n, answer))
+            return
+        slot = self.draws.randrange(n)  # n = the requests seen so far
+        if slot < k:
+            self.kept[slot] = (n, answer)
 
     def release(self) -> None:
         del self.seen
@@ -99,24 +118,20 @@ class Driver:
     def check(self, precision: str = "float64") -> dict:
         """The numbers compared. ``precision`` puts the reference in that
         precision in the program's place (the control)."""
-        g = np.random.default_rng(self.seed % (1 << 63))
-        window = np.arange(1, len(self.served))  # request 0 warmed up
-        n = min(self.traffic["checked_requests"], len(window))
-        picks = g.choice(window, size=n, replace=False) if n else window
         keys = torch.unique(torch.from_numpy(
             self.u_idx * self.config["data"]["n_items"] + self.i_idx).to(
                 self.device))
         twin = torch.from_numpy(self.twin).to(self.device)
         worst = {"seen": 0.0, "ties": 0.0, "order": 0.0, "score": 0.0}
         twin_rows = 0
-        for r in picks.tolist():
-            users = torch.from_numpy(self._batch(int(r))).to(self.device)
+        for r, answer in self.kept:
+            users = torch.from_numpy(self._batch(r)).to(self.device)
             s = ref.scores(self.user_factors, self.item_factors, users, keys,
                            "float64")
             ref_idx, ref_top = ref.top_n(s, self.traffic["topn"])
             if precision == "float64":
                 idx, top = (torch.from_numpy(a).to(self.device)
-                            for a in self.served[r])
+                            for a in answer)
             else:
                 idx, top = ref.top_n(ref.scores(
                     self.user_factors, self.item_factors, users, keys,

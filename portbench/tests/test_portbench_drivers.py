@@ -160,3 +160,36 @@ def test_reference_bpr_follows_the_programs_draws(tiny_root):
     b = settings["batch_size"].bit_length() - 1
     idx = ref.feistel(ks, prob.users.shape[0] >> b, b)
     np.testing.assert_array_equal(seen["p"].numpy(), prob.items[idx].numpy())
+
+
+def test_serve_keeps_only_the_checked_answers(tiny_root):
+    """The serve driver holds no more answers than its check reads, drawn
+    from the seed: the same seed keeps the same requests."""
+    cell = spec.resolve("wals_ml20m_k64.serve", root=tiny_root)
+    k = cell.traffic["checked_requests"]
+    kept = []
+    for _ in range(2):
+        drv = spec.driver_module(cell).Driver(cell.config, cell.traffic,
+                                              SEED, torch.device("cpu"))
+        drv.setup()
+        for _ in range(5 * k):
+            drv.call()
+        assert len(drv.kept) == k
+        kept.append(sorted(n for n, _ in drv.kept))
+    assert kept[0] == kept[1]
+    assert len(set(kept[0])) == k and 1 <= min(kept[0])
+    assert max(kept[0]) <= 5 * k
+
+
+def test_serve_reservoir_is_uniform():
+    """Every request of the window is kept with the same chance: over many
+    seeds, the first half of 200 requests holds half of what is kept."""
+    from portbench.drivers.serve import Driver
+
+    k, n, seeds, first = 8, 200, 500, 0
+    for seed in range(seeds):
+        drv = Driver({}, {"checked_requests": k}, seed, "cpu")
+        for r in range(1, n + 1):
+            drv._keep(r, None)
+        first += sum(r <= n // 2 for r, _ in drv.kept)
+    assert abs(first - seeds * k / 2) < 200  # ~6 standard deviations

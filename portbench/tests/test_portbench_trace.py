@@ -23,3 +23,17 @@ def test_gap_named_by_innermost_span_and_host_op():
     assert trace._host_op(ops, 25) == "cudaGraphLaunch"
     assert trace._host_op(ops, 60) == "after aten::item"
     assert trace._host_op(ops, 5) == "no host op"
+
+
+def test_serving_parts_are_spans():
+    """The program's ``serve_*`` parts name serving's gaps, as the WALS and
+    BPR spans do theirs; aten operations and CUDA calls stay host ops."""
+    for name in ("portbench.call", "wals_run", "bpr_epoch_3",
+                 "serve_request", "serve_scores", "serve_seen", "serve_topn"):
+        assert trace.is_span(name), name
+    for name in ("aten::topk", "cudaMemcpyAsync", "aten::nonzero"):
+        assert not trace.is_span(name), name
+    spans = [(0, 100, "portbench.call"), (5, 95, "serve_request"),
+             (60, 90, "serve_topn")]
+    assert trace._innermost(spans, 70) == "serve_topn"
+    assert trace._innermost(spans, 30) == "serve_request"

@@ -4,8 +4,9 @@ the device's busy time, its operations by time and its idle gaps.
 Busy time is the union of the device activity intervals (kernels, copies,
 sets), so overlapping work counts once. An idle gap is named by what the
 host was inside at its middle: the innermost span of the benchmark's own
-(``portbench.*``) or the program's (``wals_run``, ``bpr_epoch_N``), and
-the innermost host operation. The time between the first read call's start
+(``portbench.*``) or the program's (``wals_run``, ``bpr_epoch_N``,
+``serve_request``, ``serve_topn``; ``SPAN_PREFIXES``), and the innermost
+host operation. The time between the first read call's start
 and the device's first operation, and between its last operation and the
 last call's end, counts as gaps too.
 
@@ -24,6 +25,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 TOP = 10
+# host events whose names start so are spans, the others host operations
+SPAN_PREFIXES = ("portbench.", "wals_", "bpr_", "serve_")
 
 
 @dataclass
@@ -52,6 +55,10 @@ def idle_stretches(merged, start, end):
     bounds = [start] + [x for iv in merged for x in iv] + [end]
     return sorted(((b - a, a, b) for a, b in zip(bounds[::2], bounds[1::2])
                    if b > a), reverse=True)
+
+
+def is_span(name: str) -> bool:
+    return name.startswith(SPAN_PREFIXES)
 
 
 def _innermost(spans, t):
@@ -94,8 +101,7 @@ def profiled_calls(call, n_calls: int, device: torch.device, sync,
     spans, ops = [], []
     for e in events:
         if e.device_type == DeviceType.CPU:
-            is_span = e.name.startswith(("portbench.", "wals_", "bpr_"))
-            (spans if is_span else ops).append(
+            (spans if is_span(e.name) else ops).append(
                 (e.time_range.start, e.time_range.end, e.name))
     calls = sorted((s, t) for s, t, name in spans if name == "portbench.call")
     calls = calls[lead_in:]
